@@ -1,0 +1,60 @@
+"""Dispatch between the CUDA kernels and their plain versions
+(counterpart of `repro.kernels.attention.ops`), in the reference's
+(B, S, H, D) layout.
+
+``use_kernel`` is the counterpart of the reference's ``use_pallas``:
+
+* ``None`` — the kernel on a CUDA tensor, the plain version on a CPU
+  tensor (the default on every model path);
+* ``True`` — the kernel; a CPU tensor raises;
+* ``False`` — the plain version (tests and `chip_smoke.py` only).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.attention import ref
+from repro_torch.kernels.attention.paged import (paged_attention_bhd,
+                                                 paged_prefill_attention_btd)
+
+
+def _use_kernel(q: torch.Tensor, use_kernel: Optional[bool]) -> bool:
+    if use_kernel is None:
+        return q.device.type == "cuda"
+    if use_kernel and q.device.type != "cuda":
+        raise ValueError(
+            f"use_kernel=True needs CUDA tensors, got {q.device}")
+    return bool(use_kernel)
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, block_tables: torch.Tensor,
+                    positions: torch.Tensor, *, window: int = 0,
+                    use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """q: (B, 1, H, D); same contract as `ref.paged_attention_ref`."""
+    if _use_kernel(q, use_kernel):
+        return paged_attention_bhd(q[:, 0].contiguous(), k_pages, v_pages,
+                                   block_tables, positions,
+                                   window=window)[:, None]
+    return ref.paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                   positions, window=window)
+
+
+def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor,
+                            block_tables: torch.Tensor,
+                            start: torch.Tensor, *, window: int = 0,
+                            use_kernel: Optional[bool] = None
+                            ) -> torch.Tensor:
+    """q: (B, T, H, D); same contract as
+    `ref.paged_prefill_attention_ref`."""
+    if _use_kernel(q, use_kernel):
+        return paged_prefill_attention_btd(q.contiguous(), k_pages,
+                                           v_pages, block_tables, start,
+                                           window=window)
+    return ref.paged_prefill_attention_ref(q, k_pages, v_pages,
+                                           block_tables, start,
+                                           window=window)

@@ -1,0 +1,74 @@
+"""The CUDA paged-attention kernels against their plain PyTorch
+versions, on the card only (marker ``cuda``).  This file imports no JAX,
+so it runs on a GPU machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Small shapes from a numpy seed: flat and sharded pools, window 0 and 6,
+one or two KV heads; fp32 atol 1e-5, bf16 atol 2e-2 (the summation
+orders differ).  Each launch adds exactly one to its wrapper's count.
+`chip_smoke.py` makes the same comparison at yi-6b's full width.
+Without a card every case skips.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+B, T, H, D, PS, PTAB, N = 3, 8, 4, 16, 8, 5, 12
+
+
+def _inputs(seed, kvh, sharded, dtype):
+    rng = np.random.default_rng(seed)
+    kp = rng.normal(size=(N, PS, kvh, D)).astype(np.float32)
+    vp = rng.normal(size=(N, PS, kvh, D)).astype(np.float32)
+    if sharded:
+        kp = kp.reshape(2, N // 2, PS, kvh, D)
+        vp = vp.reshape(2, N // 2, PS, kvh, D)
+    a = dict(kp=kp, vp=vp,
+             tables=rng.integers(0, N, size=(B, PTAB)).astype(np.int32),
+             qd=rng.normal(size=(B, H, D)).astype(np.float32),
+             qp=rng.normal(size=(B, T, H, D)).astype(np.float32),
+             positions=np.asarray([0, 17, PTAB * PS - 1], np.int32),
+             start=np.asarray([0, 8, 24], np.int32))
+    out = {k: torch.from_numpy(v).cuda() for k, v in a.items()}
+    for k in ("kp", "vp", "qd", "qp"):
+        out[k] = out[k].to(dtype)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("kvh", [1, 2])
+def test_cuda_kernels_match_plain(dtype, tol, kvh):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ and "
+                    "have no CPU mode")
+    from repro_torch.kernels.attention import paged, ref
+    dtype = getattr(torch, dtype)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for sharded in (False, True):
+            for window in (0, 6):
+                c = _inputs(11 + kvh, kvh, sharded, dtype)
+                pages = (c["kp"], c["vp"], c["tables"])
+                paged.reset_launches()
+                got = paged.paged_attention_bhd(
+                    c["qd"], *pages, c["positions"], window=window)
+                want = ref.paged_attention_ref(
+                    c["qd"][:, None], *pages, c["positions"],
+                    window=window)[:, 0]
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=tol, rtol=0)
+                got = paged.paged_prefill_attention_btd(
+                    c["qp"], *pages, c["start"], window=window)
+                want = ref.paged_prefill_attention_ref(
+                    c["qp"], *pages, c["start"], window=window)
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=tol, rtol=0)
+                assert paged.LAUNCHES == {"paged_attention_bhd": 1,
+                                          "paged_prefill_attention_btd": 1}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

@@ -1,0 +1,59 @@
+"""The PyTorch port stands alone: it imports neither JAX nor any module
+of the reference package `repro`, at run time (a subprocess that
+serves a request on the CPU ends with neither in `sys.modules`) and in
+its sources (`src/repro_torch/` and `chip_smoke.py`)."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+PROBE = """
+import sys
+import numpy as np
+import repro_torch.configs as configs
+from repro_torch.device import make_generator
+from repro_torch.models import transformer as T
+from repro_torch.serving.engine import Request, make_engine
+import repro_torch.launch.serve
+
+cfg = configs.get_reduced("yi-6b")
+params = T.init_params(make_generator(0, "cpu"), cfg)
+eng = make_engine(params, cfg, slots=2, max_len=64, page_size=8,
+                  chunk_size=16, prefix_cache_compute=True, device="cpu")
+fut = eng.submit(Request(0, np.arange(20, dtype=np.int32),
+                         max_new_tokens=3))
+eng.run_to_completion()
+assert len(fut.get().tokens) == 3
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print("BAD", bad)
+"""
+
+
+def test_serving_on_cpu_loads_no_jax_and_no_reference_module():
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|"
+    r"from\s+repro(\.|\s))", re.M)
+
+
+def test_sources_import_neither_jax_nor_the_reference():
+    files = sorted((SRC / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    for f in files:
+        text = f.read_text()
+        hits = FORBIDDEN.findall(text)
+        assert not hits, f"{f.relative_to(ROOT)} imports {hits}"

@@ -1,0 +1,125 @@
+"""The PyTorch port's paged attention against the JAX reference.
+
+The plain PyTorch versions (`repro_torch.kernels.attention.ref`) are
+held against the reference's jnp oracles and its Pallas kernels (run
+in interpret mode on the CPU, as the reference's own tests run them)
+on the same numpy inputs: flat and sharded pools, window 0/6, one or
+two KV heads, fp32, atol 1e-5 (the reference's paged-attention
+tolerance).  The CUDA kernels are held against the plain versions in
+`tests/test_torch_cuda.py`, which needs a card and skips without one;
+`chip_smoke.py` runs the same comparison at full width.
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from repro.kernels.attention import ops as jops
+from repro.kernels.attention import ref as jref
+from repro_torch.kernels.attention import ops as tops
+from repro_torch.kernels.attention import paged as tpaged
+from repro_torch.kernels.attention import ref as tref
+
+ATOL = 1e-5
+B, T, H, D, PS, PTAB = 3, 8, 4, 16, 8, 5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+def _inputs(seed, kvh, sharded):
+    """Pool of 2 x 6 rows (sharded) or 12 rows (flat), tables drawn over
+    all rows, decode clocks and page-aligned chunk starts."""
+    rng = np.random.default_rng(seed)
+    n = 12
+    kp = rng.normal(size=(n, PS, kvh, D)).astype(np.float32)
+    vp = rng.normal(size=(n, PS, kvh, D)).astype(np.float32)
+    if sharded:
+        kp = kp.reshape(2, n // 2, PS, kvh, D)
+        vp = vp.reshape(2, n // 2, PS, kvh, D)
+    tables = rng.integers(0, n, size=(B, PTAB)).astype(np.int32)
+    qd = rng.normal(size=(B, 1, H, D)).astype(np.float32)
+    qp = rng.normal(size=(B, T, H, D)).astype(np.float32)
+    positions = np.asarray([0, 17, PTAB * PS - 1], np.int32)
+    start = np.asarray([0, 8, 24], np.int32)
+    return dict(kp=kp, vp=vp, tables=tables, qd=qd, qp=qp,
+                positions=positions, start=start)
+
+
+def _t(x):
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+@pytest.mark.parametrize("kvh", [1, 2])
+@pytest.mark.parametrize("window", [0, 6])
+def test_plain_decode_matches_reference(window, kvh, sharded):
+    a = _inputs(1 + kvh, kvh, sharded)
+    got = tref.paged_attention_ref(
+        _t(a["qd"]), _t(a["kp"]), _t(a["vp"]), _t(a["tables"]),
+        _t(a["positions"]), window=window).numpy()
+    args = [jnp.asarray(a[k]) for k in
+            ("qd", "kp", "vp", "tables", "positions")]
+    oracle = np.asarray(jref.paged_attention_ref(*args, window=window))
+    pallas = np.asarray(jops.paged_attention(*args, window=window))
+    np.testing.assert_allclose(got, oracle, atol=ATOL)
+    np.testing.assert_allclose(got, pallas, atol=ATOL)
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+@pytest.mark.parametrize("kvh", [1, 2])
+@pytest.mark.parametrize("window", [0, 6])
+def test_plain_prefill_matches_reference(window, kvh, sharded):
+    a = _inputs(7 + kvh, kvh, sharded)
+    got = tref.paged_prefill_attention_ref(
+        _t(a["qp"]), _t(a["kp"]), _t(a["vp"]), _t(a["tables"]),
+        _t(a["start"]), window=window).numpy()
+    args = [jnp.asarray(a[k]) for k in
+            ("qp", "kp", "vp", "tables", "start")]
+    oracle = np.asarray(jref.paged_prefill_attention_ref(
+        *args, window=window))
+    pallas = np.asarray(jops.paged_prefill_attention(*args,
+                                                     window=window))
+    np.testing.assert_allclose(got, oracle, atol=ATOL)
+    np.testing.assert_allclose(got, pallas, atol=ATOL)
+
+
+def test_cpu_dispatch_uses_plain_version_and_counts_nothing():
+    """On CPU tensors the wrappers compute the plain version and never
+    count a launch; ``use_kernel=True`` on a CPU tensor raises."""
+    a = _inputs(3, 2, False)
+    tpaged.reset_launches()
+    q = _t(a["qd"])
+    pages = (_t(a["kp"]), _t(a["vp"]), _t(a["tables"]))
+    out = tops.paged_attention(q, *pages, _t(a["positions"]))
+    plain = tref.paged_attention_ref(q, *pages, _t(a["positions"]))
+    assert torch.equal(out, plain)
+    out = tpaged.paged_attention_bhd(q[:, 0], *pages, _t(a["positions"]))
+    assert torch.equal(out, plain[:, 0])
+    out = tpaged.paged_prefill_attention_btd(_t(a["qp"]), *pages,
+                                             _t(a["start"]))
+    assert torch.equal(out, tref.paged_prefill_attention_ref(
+        _t(a["qp"]), *pages, _t(a["start"])))
+    assert tpaged.LAUNCHES == {"paged_attention_bhd": 0,
+                               "paged_prefill_attention_btd": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.paged_attention(q, *pages, _t(a["positions"]),
+                             use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.paged_prefill_attention(_t(a["qp"]), *pages, _t(a["start"]),
+                                     use_kernel=True)
+
+
+def test_kernel_source_has_its_c_interface():
+    """The CUDA source ships with the package and exports the two C
+    entry points the ctypes wrappers bind."""
+    src = tpaged.SOURCE.read_text()
+    assert "int paged_attention_decode(" in src
+    assert "int paged_prefill_attention(" in src
+    assert "cudaGetLastError" in src
