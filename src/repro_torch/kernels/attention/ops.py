@@ -17,11 +17,13 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.attention import ref
+from repro_torch.kernels.attention.flash import flash_attention_bshd
 from repro_torch.kernels.attention.paged import (paged_attention_bhd,
                                                  paged_prefill_attention_btd)
 
 
-def _use_kernel(q: torch.Tensor, use_kernel: Optional[bool]) -> bool:
+def use_kernel_for(q: torch.Tensor, use_kernel: Optional[bool]) -> bool:
+    """Whether a call on `q` runs the kernel (see the module's note)."""
     if use_kernel is None:
         return q.device.type == "cuda"
     if use_kernel and q.device.type != "cuda":
@@ -30,12 +32,26 @@ def _use_kernel(q: torch.Tensor, use_kernel: Optional[bool]) -> bool:
     return bool(use_kernel)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0,
+                    use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """q: (B, Sq, H, D); k/v: (B, Sk, KV, D) (GQA without repetition);
+    same contract as `ref.flash_attention_ref`."""
+    if use_kernel_for(q, use_kernel):
+        return flash_attention_bshd(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal=causal,
+                                    window=window, q_offset=q_offset)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+
+
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_tables: torch.Tensor,
                     positions: torch.Tensor, *, window: int = 0,
                     use_kernel: Optional[bool] = None) -> torch.Tensor:
     """q: (B, 1, H, D); same contract as `ref.paged_attention_ref`."""
-    if _use_kernel(q, use_kernel):
+    if use_kernel_for(q, use_kernel):
         return paged_attention_bhd(q[:, 0].contiguous(), k_pages, v_pages,
                                    block_tables, positions,
                                    window=window)[:, None]
@@ -51,7 +67,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
                             ) -> torch.Tensor:
     """q: (B, T, H, D); same contract as
     `ref.paged_prefill_attention_ref`."""
-    if _use_kernel(q, use_kernel):
+    if use_kernel_for(q, use_kernel):
         return paged_prefill_attention_btd(q.contiguous(), k_pages,
                                            v_pages, block_tables, start,
                                            window=window)

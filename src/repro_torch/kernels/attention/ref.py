@@ -1,14 +1,29 @@
-"""Plain PyTorch versions of the paged attention ops (counterpart of
-`repro.kernels.attention.ref`): the gather-based decode and chunked
-prefill attention the CUDA kernels in `csrc/paged_attention.cu`
-compute.  They are the CPU path of the port and the oracle the kernels
-are held against on the card."""
+"""Plain PyTorch versions of the attention kernels (counterpart of
+`repro.kernels.attention.ref`): flash attention as a chunked online
+softmax (the function of `csrc/flash_attention.cu`), and the
+gather-based decode and chunked prefill attention of
+`csrc/paged_attention.cu`.  They are the CPU path of the port and the
+oracle the kernels are held against on the card."""
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.attention import repeat_kv
+from repro_torch.models.attention import flash_jnp, repeat_kv
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, *, causal: bool = True,
+                        window: int = 0,
+                        q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, D); k/v: (B, Sk, KV, D).  Returns (B, Sq, H, D)."""
+    n_rep = q.shape[2] // k.shape[2]
+    k = repeat_kv(k, n_rep)
+    v = repeat_kv(v, n_rep)
+    return flash_jnp(q, k, v, causal=causal, window=window,
+                     q_offset=q_offset,
+                     chunk_q=min(128, q.shape[1]),
+                     chunk_k=min(128, k.shape[1]))
 
 
 def _gather_pages(pages: torch.Tensor, block_tables: torch.Tensor,

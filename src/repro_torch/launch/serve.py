@@ -1,5 +1,5 @@
-"""Serving entry point of the port: reduced-config chunked serving demo
-(counterpart of `repro.launch.serve` for the flags this slice serves).
+"""Serving entry point of the port: reduced-config serving demo
+(counterpart of `repro.launch.serve` for the flags the port serves).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b
@@ -7,6 +7,11 @@ Usage:
       --device cpu --pages 24 --chunk-size 32 --step-tokens 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
       --device cpu --prefix-cache-compute
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
+      --device cpu --engine dense
+
+``--engine`` picks the chunked engine (default), the whole-prompt
+paged engine or the dense slot-pool baseline.
 
 Like the reference CLI it serves the reduced config (`cfg.reduced()`)
 with random weights from a seed.  ``--device`` defaults to ``cuda``,
@@ -30,6 +35,8 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--engine", choices=("chunked", "paged", "dense"),
+                    default="chunked")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--pages", type=int, default=0,
                     help="page-pool size (0 = dense-equivalent)")
@@ -57,7 +64,7 @@ def main(argv=None):
 
     cfg = configs.get_reduced(args.arch)
     params = T.init_params(make_generator(args.seed, args.device), cfg)
-    eng = make_engine(params, cfg, engine="chunked",
+    eng = make_engine(params, cfg, engine=args.engine,
                       slots=args.slots, max_len=args.max_len,
                       page_size=args.page_size,
                       n_pages=args.pages or None,
@@ -89,6 +96,8 @@ def main(argv=None):
               f"prefill={c.prefill_s * 1e3:.0f}ms "
               f"decode={c.decode_s * 1e3:.0f}ms "
               f"preempts={c.preemptions}")
+    if not hasattr(eng, "stats"):         # the dense engine keeps none
+        return
     s = eng.stats()
     print(f"[serve] steps={s['steps']} "
           f"peak_active={s['peak_active']} "

@@ -1,9 +1,15 @@
-"""The paged subset of `repro.models.transformer`, on torch tensors.
+"""The serving subset of `repro.models.transformer`, on torch tensors.
 
 Entry points (the reference's names and contracts):
 
   init_params(gen, cfg)                     -> params
   logits_fn(params, hidden)                 -> f32 logits
+  prefill(params, batch, cfg)               -> (hidden, cache)
+                                            (whole-prompt prefill that
+                                            builds the dense decode
+                                            cache; flash attention)
+  init_cache(cfg, batch, cache_len)         -> dense cache
+  decode_step(params, cache, batch, cfg)    -> (logits, cache)
   init_paged_cache(cfg, n_rows, page_size)  -> {"k","v"} page arrays
   decode_step_paged(params, pages, batch, cfg) -> (logits, pages)
   prefill_chunk(params, pages, batch, cfg)  -> (logits, pages)
@@ -14,18 +20,20 @@ STACKED on a leading axis (``params["layers"]["attn"]["wq"]`` is
 (L, d_model, H*hd)), so `models/convert.py` carries a reference
 pytree across leaf by leaf; the layer loop indexes the stack.
 
-Page pools are updated IN PLACE: the K/V scatter is an index copy
-into ``pages["k"]``/``pages["v"]``, and the returned dict is the one
-passed in.  The reference donates the pool to a jitted step instead
+Page pools and dense caches are updated IN PLACE: the K/V scatter is
+an index copy into ``pages["k"]``/``pages["v"]`` (or the dense
+cache's ``k``/``v``), and the returned dict holds the tensors passed
+in.  The reference donates the pool to a jitted step instead
 (`repro.serving.engine`), which XLA lowers to the same in-place
 update on an accelerator.
 
-Every paged function takes ``use_kernel`` (the counterpart of
-``use_pallas``): None runs the CUDA kernels on CUDA tensors and their
-plain versions on CPU tensors; True on a CPU tensor raises; False
-runs the plain versions (tests and `chip_smoke.py`).  Only the
-``dense`` and ``audio`` families are ported so far; ``moe`` (GShard
-routing) is ROADMAP Queue A item 2.
+Every attention-running function takes ``use_kernel`` (the
+counterpart of ``use_pallas``): None runs the CUDA kernels on CUDA
+tensors and their plain versions on CPU tensors; True on a CPU tensor
+raises; False runs the plain versions (tests and `chip_smoke.py`).
+Only the ``dense`` and ``audio`` families are ported so far; ``moe``
+(GShard routing) is ROADMAP Queue A item 2, and the ``ssm``,
+``hybrid`` and ``vlm`` families item 13.
 """
 
 from __future__ import annotations
@@ -54,6 +62,17 @@ def _check_family(cfg: ArchConfig, what: str) -> None:
         raise NotImplementedError(
             f"{cfg.family!r} layers are not ported yet (ROADMAP Queue A "
             f"item 2: MoE routing)")
+
+
+def _check_ported(cfg: ArchConfig, what: str) -> None:
+    """The whole-prompt functions serve every family in the reference;
+    the port has the dense and audio stacks so far."""
+    if cfg.family not in PORTED_FAMILIES:
+        item = "2: MoE routing" if cfg.family == "moe" \
+            else "13: non-paged families"
+        raise NotImplementedError(
+            f"{what} of the {cfg.family!r} family is not ported yet "
+            f"(ROADMAP Queue A item {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +153,153 @@ def _mlp_block(lp: Params, x: torch.Tensor, cfg: ArchConfig):
 def _rope(cfg: ArchConfig, positions: torch.Tensor):
     rot = int(cfg.head_dim * cfg.rope_fraction) if cfg.n_heads else 2
     return att.rope_angles(positions, max(rot, 2), cfg.rope_theta)
+
+
+# ---------------------------------------------------------------------------
+# Whole-prompt prefill and the dense decode cache
+# ---------------------------------------------------------------------------
+
+def _attn_block(lp: Params, x: torch.Tensor, cfg: ArchConfig,
+                cos: torch.Tensor, sin: torch.Tensor, *,
+                use_kernel: Optional[bool] = None):
+    """Causal self-attention of one layer over the whole sequence:
+    (output projection, (k, v)) with k/v (B, S, KV, D) after RoPE."""
+    h = rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+    q, k, v = att.qkv(lp["attn"], h, cfg)
+    q = att.apply_rope(q, cos, sin, cfg.rope_fraction)
+    k = att.apply_rope(k, cos, sin, cfg.rope_fraction)
+    o = att.attention(q, k, v, cfg, use_kernel=use_kernel)
+    b, s, _, _ = o.shape
+    return o.reshape(b, s, -1) @ lp["attn"]["wo"], (k, v)
+
+
+def _counter(value: int, device: torch.device) -> torch.Tensor:
+    return torch.tensor(value, dtype=torch.int32, device=device)
+
+
+def prefill(params: Params, batch: Dict[str, Any], cfg: ArchConfig,
+            use_kernel: Optional[bool] = None, full_kv: bool = False,
+            last_index: Optional[int] = None, all_hidden: bool = False
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Full-sequence forward that also builds the decode cache.
+
+    batch: tokens (B, S); frame_embeds (B, S, D) for the audio family
+    (optional).  Returns (last-position post-norm hidden (B, D),
+    cache).  The cache holds k/v (L, B, S', KV, D) and the 0-d int32
+    counters ``len`` (valid slots), ``cursor`` (next ring write slot)
+    and ``abs`` (next absolute position).  Sliding-window configs keep
+    only the trailing ``window`` keys, the ring reset so the cursor
+    wraps onto the oldest slot, unless `full_kv` (the paged engines
+    keep every position and mask the window by absolute position).
+    `last_index` picks the position whose hidden is returned (a
+    right-padded prompt ends before its buffer); `all_hidden` returns
+    the whole post-norm hidden (B, S, D) instead.  Every layer's
+    attention is one flash-attention call: the CUDA kernel on the
+    card.
+    """
+    _check_ported(cfg, "prefill")
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = embed_lookup(params["embed"], tokens)
+    if cfg.family == "audio" and "frame_embeds" in batch:
+        x = x + batch["frame_embeds"].to(x.dtype)
+    cos, sin = _rope(cfg, torch.arange(s, device=tokens.device))
+    win = cfg.sliding_window
+    eff = min(s, win) if win else s
+
+    def trim(t):   # keep the trailing window for SWA ring buffers
+        return t[:, -eff:] if (win and not full_kv) else t
+
+    dev = tokens.device
+    cache: Dict[str, Any] = {"len": _counter(eff, dev),
+                             "cursor": _counter(0 if win else s, dev),
+                             "abs": _counter(s, dev)}
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        o, (k, v) = _attn_block(lp, x, cfg, cos, sin,
+                                use_kernel=use_kernel)
+        x = x + o
+        x = x + _mlp_block(lp, x, cfg)
+        ks.append(trim(k))
+        vs.append(trim(v))
+    cache["k"] = torch.stack(ks)
+    cache["v"] = torch.stack(vs)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if all_hidden:
+        return x, cache
+    if last_index is None:
+        return x[:, -1], cache
+    return x[:, int(last_index)], cache
+
+
+def init_cache(cfg: ArchConfig, batch_size: int, cache_len: int,
+               dtype: Optional[torch.dtype] = None,
+               device: DeviceLike = None) -> Dict[str, Any]:
+    """Allocate the dense decode cache (zeros) on `device` (default
+    ``cuda``): k/v (L, B, S', KV, D) with S' = `cache_len`, capped at
+    the window for sliding-window configs, and zero counters."""
+    _check_ported(cfg, "init_cache")
+    dev = resolve_device(device)
+    dt = dtype or torch_dtype(cfg.dtype)
+    eff = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
+        else cache_len
+    shape = (cfg.n_layers, batch_size, eff, cfg.n_kv_heads, cfg.head_dim)
+    return {"len": _counter(0, dev), "cursor": _counter(0, dev),
+            "abs": _counter(0, dev),
+            "k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def _decode_attn(lp: Params, x: torch.Tensor, cfg: ArchConfig,
+                 cos: torch.Tensor, sin: torch.Tensor, k_c: torch.Tensor,
+                 v_c: torch.Tensor, cache_len: torch.Tensor,
+                 pos: torch.Tensor) -> torch.Tensor:
+    """One-token attention against one layer's cache, writing the new
+    K/V at slot `pos` (a 1-element int64 index) IN PLACE first."""
+    h = rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+    q, k, v = att.qkv(lp["attn"], h, cfg)
+    q = att.apply_rope(q, cos, sin, cfg.rope_fraction)
+    k = att.apply_rope(k, cos, sin, cfg.rope_fraction)
+    k_c.index_copy_(1, pos, k.to(k_c.dtype))
+    v_c.index_copy_(1, pos, v.to(v_c.dtype))
+    o = att.decode_attention(q, k_c, v_c, cache_len + 1, cfg)
+    return o.reshape(x.shape[0], 1, -1) @ lp["attn"]["wo"]
+
+
+def decode_step(params: Params, cache: Dict[str, Any],
+                batch: Dict[str, Any], cfg: ArchConfig
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decode step for the whole batch on the shared clock.
+
+    batch: tokens (B, 1).  Returns (logits (B, V) f32, cache): the
+    cache's k/v are written in place and the counters advance by one.
+    Sliding-window caches are rings: the write slot wraps at
+    ``cursor % window``.  A full cache writes its last slot again, as
+    the reference's clamped `dynamic_update_slice` does.
+    """
+    _check_ported(cfg, "decode_step")
+    tokens = batch["tokens"]
+    x = embed_lookup(params["embed"], tokens)
+    cache_len = cache["len"]
+    eff = cache["k"].shape[2]
+    if cfg.sliding_window > 0:
+        pos = cache["cursor"] % eff
+    else:
+        pos = torch.clamp(cache["cursor"], max=eff - 1)
+    pos = pos.long().reshape(1)
+    cos, sin = _rope(cfg, cache["abs"][None])
+    aux_len = torch.clamp(cache_len, max=eff - 1)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        x = x + _decode_attn(lp, x, cfg, cos, sin, cache["k"][i],
+                             cache["v"][i], aux_len, pos)
+        x = x + _mlp_block(lp, x, cfg)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = logits_fn(params, x[:, 0])
+    cache = dict(cache, len=cache["len"] + 1,
+                 cursor=cache["cursor"] + 1, abs=cache["abs"] + 1)
+    return logits, cache
 
 
 # ---------------------------------------------------------------------------

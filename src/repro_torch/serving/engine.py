@@ -7,21 +7,30 @@ first-class object whose completion is an LCO — `submit` returns a
 Arriving requests are parcels; decode is a dataflow chain per slot,
 and the engine packs ready slots into batched decode steps.
 
-This slice ports the default engine, `ChunkedPagedServingEngine`:
-prompts are split into page-aligned CHUNKS and every `step()` spends a
-token budget on the decode batch first and pending chunks in the
-remainder (DESIGN.md §4b), over the AGAS page pool of
-`serving/kvcache.py`, with prefix-cache compute skip (§4e) and
-preemption — mid-decode and mid-prefill — under page pressure.
-`PagedServingEngine` is the base it takes decode, resume and
-preemption from; its whole-prompt admission, the dense engine, the
-disaggregated engine, tiering, sharded pools and failure plans are not
-in this slice and raise `NotImplementedError` naming their ROADMAP
+Three engines share that skeleton, as in the reference:
+
+* `ChunkedPagedServingEngine` (the default `ServingEngine`): prompts
+  are split into page-aligned CHUNKS and every `step()` spends a token
+  budget on the decode batch first and pending chunks in the
+  remainder (DESIGN.md §4b), over the AGAS page pool of
+  `serving/kvcache.py`, with prefix-cache compute skip (§4e) and
+  preemption — mid-decode and mid-prefill — under page pressure.
+* `PagedServingEngine`: the whole-prompt baseline over the same page
+  pool — each admission runs one bucketed prefill of the entire
+  prompt (`T.prefill`, flash attention) before decode resumes; the
+  chunked engine takes decode, resume and preemption from it.
+* `DenseServingEngine`: the static-ownership baseline — a bulk
+  (slots, max_len) cache with one shared position clock (`T.init_cache`
+  / `T.decode_step`); prompts are left-padded to their bucket.
+
+The disaggregated engine, tiering, sharded pools and failure plans are
+not ported yet and raise `NotImplementedError` naming their ROADMAP
 item.
 
-On the card the model steps run the hand-written CUDA paged-attention
-kernels; on the CPU (``device="cpu"``) their plain PyTorch versions.
-The page pool is updated in place.  Sampling is greedy argmax, or a
+On the card the model steps run the hand-written CUDA attention
+kernels (paged decode, chunked prefill, flash); on the CPU
+(``device="cpu"``) their plain PyTorch versions.  Page pools and the
+dense cache are updated in place.  Sampling is greedy argmax, or a
 `torch.Generator` seeded with ``rid * 7919 + n_gen``.
 """
 
@@ -54,17 +63,30 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to PyTorch yet (ROADMAP {item})")
 
 
+def _refuse_unported(tiering: bool = False, host_pages: int = 0,
+                     kv_shards: int = 1, failure_plan=None) -> None:
+    """Raise for the options whose subsystems are not ported yet."""
+    if kv_shards != 1:
+        raise _not_ported("a sharded page pool", "Queue A item 8")
+    if tiering or host_pages:
+        raise _not_ported("tiering", "Queue A item 7")
+    if failure_plan is not None:
+        raise _not_ported("failure plans", "Queue A item 9")
+
+
 class _EngineBase:
-    """Queue intake, sampling, and the run loop."""
+    """Queue intake, bucketed prefill, sampling, and the run loop."""
 
     def __init__(self, params: Any, cfg: ArchConfig, *, slots: int,
-                 max_len: int, device: DeviceLike = None,
-                 tracer=None, flight_recorder=False):
+                 max_len: int, prefill_buckets=(64, 128, 256),
+                 device: DeviceLike = None, tracer=None,
+                 flight_recorder=False):
         self.device = check_device(params, device)
         self.params = params
         self.cfg = cfg
         self.slots = slots
         self.max_len = max_len
+        self.buckets = tuple(sorted(prefill_buckets))
         self.trace = tracer if tracer is not None else NULL_TRACER
         self.metrics = MetricsRegistry()
         # per-request lifecycle timelines (obs/slo.py); disabled is a
@@ -79,6 +101,10 @@ class _EngineBase:
         self.free_slots = list(range(slots))
         self.completions: List[Completion] = []
         self._futures: Dict[int, Future] = {}
+        self._prefills: Dict[int, Any] = {}
+
+    def _tensor(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(arr, device=self.device)
 
     # -- observability ------------------------------------------------
     def _record_step_metrics(self, c: dict) -> None:
@@ -125,6 +151,39 @@ class _EngineBase:
                 [np.asarray(req.prompt, np.int32),
                  np.asarray(item["gen"], np.int32)])
         return np.asarray(req.prompt, np.int32)
+
+    def _bucket(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        # beyond the ladder: multiples of the largest bucket, so the
+        # prefill shapes stay bounded
+        big = self.buckets[-1]
+        return -(-n // big) * big
+
+    @staticmethod
+    def _pad_to(tokens: np.ndarray, length: int) -> np.ndarray:
+        padded = np.zeros(length, np.int32)
+        padded[length - len(tokens):] = tokens           # left-pad
+        return padded
+
+    def _padded_prompt(self, tokens: np.ndarray) -> np.ndarray:
+        return self._pad_to(tokens, self._bucket(len(tokens)))
+
+    def _prefill_fn(self, bucket: int):
+        """The prefill of one bucket, kept per bucket as the reference
+        keeps one compiled prefill per bucket (`_prefills` lists the
+        rungs served).  The last index is an argument, so a
+        right-padded prompt never needs an entry of its own."""
+        if bucket not in self._prefills:
+            cfg = self.cfg
+
+            def fn(params, tokens, last_index):
+                hidden, cache = T.prefill(params, {"tokens": tokens}, cfg,
+                                          last_index=last_index)
+                return T.logits_fn(params, hidden), cache
+            self._prefills[bucket] = fn
+        return self._prefills[bucket]
 
     def _sample(self, logits: torch.Tensor, req: Request,
                 n_gen: int) -> int:
@@ -237,10 +296,10 @@ class _EngineBase:
         return n
 
     def _step(self) -> int:
-        raise _not_ported("whole-prompt prefill", "Queue A item 10")
+        raise NotImplementedError
 
     def _admit(self) -> None:
-        raise _not_ported("whole-prompt prefill", "Queue A item 10")
+        raise NotImplementedError
 
     def run_to_completion(self, max_steps: int = 10_000,
                           on_step=None) -> None:
@@ -271,40 +330,139 @@ class _EngineBase:
                 f"{len(self.queue)} queued request(s)"))
 
 
+class DenseServingEngine(_EngineBase):
+    """Static bulk KV ownership: (slots, max_len), one shared clock.
+
+    The CSP-style baseline, kept for parity tests and comparisons.
+    Prompts are LEFT-padded with token 0 to their bucket and the pad
+    is attended over (no pad mask); each prefill cache is spliced into
+    the slot pool and the shared ``len``/``cursor``/``abs`` clock keeps
+    the max, so the clock is exact only when every resident prompt
+    filled the same bucket.  One batched decode runs over all slots,
+    idle ones included.  These are the reference's semantics, carried
+    over as they are.
+    """
+
+    def __init__(self, params: Any, cfg: ArchConfig, *, slots: int = 4,
+                 max_len: int = 512, prefill_buckets=(64, 128, 256),
+                 tracer=None, flight_recorder=False,
+                 device: DeviceLike = None):
+        super().__init__(params, cfg, slots=slots, max_len=max_len,
+                         prefill_buckets=prefill_buckets, device=device,
+                         tracer=tracer, flight_recorder=flight_recorder)
+        # one shared batched cache across slots
+        self.cache = T.init_cache(cfg, slots, max_len, device=self.device)
+
+    def _admit(self) -> None:
+        while self.queue and self.free_slots:
+            item = self.queue.pop(0)
+            req = item["req"]
+            toks = self._padded_prompt(self._queue_prompt(item))
+            bucket = len(toks)
+            if bucket > self.max_len:
+                self._reject(item, ValueError(
+                    f"request {req.rid}: padded prompt {bucket} "
+                    f"exceeds max_len {self.max_len}"))
+                continue
+            slot = self.free_slots.pop(0)
+            self._slot_bind(req.rid, slot)
+            t0 = time.perf_counter()
+            with self.trace.span("engine", "prefill", kind="compute",
+                                 rid=req.rid, bucket=bucket):
+                logits, pcache = self._prefill_fn(bucket)(
+                    self.params, self._tensor(toks[None]), bucket - 1)
+            if self.recorder.enabled:
+                self.recorder.event(req.rid, "prefill", bucket=bucket,
+                                    dur=time.perf_counter() - t0)
+            # splice this request's prefill cache into the slot pool
+            self._splice_cache(slot, pcache)
+            first = self._sample(logits[0], req, len(item["gen"]))
+            now = time.perf_counter()
+            self.active[slot] = {
+                "req": req, "tokens": item["gen"] + [int(first)],
+                "prefill_s": now - t0,
+                "t0": now,
+                "preempts": item["preempts"],
+                **self._latency_state(item, now),
+            }
+            self._first_token(self.active[slot], now)
+            if self._stopped(req, self.active[slot]["tokens"]):
+                self._finish(self.active.pop(slot))
+                self.free_slots.append(slot)
+
+    def _splice_cache(self, slot: int, pcache: dict) -> None:
+        """Write a (L, 1, S', KV, D) prefill cache into `slot`'s rows
+        (zero past S', as the reference pads it) and keep the max of
+        the shared counters."""
+        for key in ("k", "v"):
+            pool, part = self.cache[key], pcache[key]
+            n = part.shape[2]
+            pool[:, slot].zero_()
+            pool[:, slot, :n] = part[:, 0].to(pool.dtype)
+        for key in ("len", "cursor", "abs"):
+            self.cache[key] = torch.maximum(self.cache[key], pcache[key])
+
+    # -- the decode work-queue ----------------------------------------
+    def _step(self) -> int:
+        """One batched decode step over all slots."""
+        with self.trace.span("engine", "admit", kind="sched"):
+            self._admit()
+        if not self.active:
+            return 0
+        tokens = np.zeros((self.slots, 1), np.int32)
+        for slot, st in self.active.items():
+            tokens[slot, 0] = st["tokens"][-1]
+        with self.trace.span("engine", "decode_batch", kind="compute",
+                             n=len(self.active)):
+            logits, self.cache = T.decode_step(
+                self.params, self.cache, {"tokens": self._tensor(tokens)},
+                self.cfg)
+        done = []
+        now = time.perf_counter()
+        for slot, st in self.active.items():
+            req = st["req"]
+            tok = self._sample(logits[slot], req, len(st["tokens"]))
+            st["tokens"].append(tok)
+            st["tok_t"].append(now)
+            if self._stopped(req, st["tokens"]):
+                done.append(slot)
+        for slot in done:
+            self._finish(self.active.pop(slot))
+            self.free_slots.append(slot)
+        return len(self.active) + len(done)
+
+
 class PagedServingEngine(_EngineBase):
     """KV memory as AGAS pages: demand allocation, prefix sharing,
-    page-gated admission, and preemption under pressure — the base the
-    chunked engine takes its decode batch, compute-skip resume and
-    preemption from.  Its own whole-prompt admission is not ported
-    (ROADMAP Queue A item 10), so it is used through
-    `ChunkedPagedServingEngine`.
+    page-gated admission, and preemption under pressure.  Each
+    admission prefills the whole prompt at its bucket (right-padded in
+    the compute buffer only: the cache layout stays pad-free) and
+    attaches its K/V as pages; the chunked engine subclasses it.
 
     ``prefix_cache_compute=True`` (DESIGN.md §4e): every prefill
     checkpoints the post-norm hidden state at each page's last
     position into the prefix index, and a later prompt fully covered
     by cached pages admits straight to decode — its first token is
     sampled from the cached checkpoint (`T.resume_prefill`).  Greedy
-    outputs are token-identical with the flag on or off.
+    outputs are token-identical with the flag on or off.  This
+    whole-prompt engine skips full covers only; the chunked engine also
+    resumes partially covered prompts at the cover's end.
     """
 
     def __init__(self, params: Any, cfg: ArchConfig, *, slots: int = 4,
-                 max_len: int = 512, page_size: int = 16,
-                 n_pages: Optional[int] = None,
+                 max_len: int = 512, prefill_buckets=(64, 128, 256),
+                 page_size: int = 16, n_pages: Optional[int] = None,
                  kv_shards: int = 1, tiering: bool = False,
                  host_pages: int = 0,
                  prefix_cache_compute: bool = False,
                  pin_threshold: int = 4, tracer=None,
                  flight_recorder=False, failure_plan=None,
                  device: DeviceLike = None):
-        if kv_shards != 1:
-            raise _not_ported("a sharded page pool", "Queue A item 8")
-        if tiering or host_pages:
-            raise _not_ported("tiering", "Queue A item 7")
-        if failure_plan is not None:
-            raise _not_ported("failure plans", "Queue A item 9")
+        _refuse_unported(tiering=tiering, host_pages=host_pages,
+                         kv_shards=kv_shards, failure_plan=failure_plan)
         super().__init__(params, cfg, slots=slots, max_len=max_len,
-                         device=device, tracer=tracer,
-                         flight_recorder=flight_recorder)
+                         prefill_buckets=prefill_buckets, device=device,
+                         tracer=tracer, flight_recorder=flight_recorder)
         if n_pages is None:
             # default: the dense engine's worst-case footprint
             n_pages = slots * (-(-max_len // page_size))
@@ -321,8 +479,23 @@ class PagedServingEngine(_EngineBase):
         self.prefix_partial_hits = 0     # partially-covered admissions
         self.prefill_tokens_skipped = 0  # prompt tokens never recomputed
 
-    def _tensor(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(arr, device=self.device)
+    def _prefill_fn(self, bucket: int):
+        """The base engine's per-bucket prefill, keeping every position
+        (``full_kv``) and also returning the post-norm hidden at every
+        page boundary plus the true last position — the activation
+        checkpoints the prefix index stores for compute skip (§4e)."""
+        if bucket not in self._prefills:
+            cfg = self.cfg
+            ps = self.kvc.pool.page_size
+
+            def fn(params, tokens, last_index):
+                hidden, cache = T.prefill(params, {"tokens": tokens}, cfg,
+                                          full_kv=True, all_hidden=True)
+                last = hidden[:, last_index]
+                return (T.logits_fn(params, last), cache,
+                        hidden[:, ps - 1::ps], last)
+            self._prefills[bucket] = fn
+        return self._prefills[bucket]
 
     # -- prefix-cache compute skip (DESIGN.md §4e) --------------------
     def _admit_skip(self, item: dict, layout: np.ndarray, real: int,
@@ -410,6 +583,67 @@ class PagedServingEngine(_EngineBase):
         """Pages the CURRENT step's committed work will still take —
         the admission watermark."""
         return sum(1 for s in self.active if self.kvc.needs_alloc(s))
+
+    def _admit(self) -> None:
+        while self.queue and self.free_slots:
+            item = self.queue[0]
+            req = item["req"]
+            adm = self._admission_layout(item)
+            if adm is None:
+                continue
+            layout, real, need = adm
+            if self._prefix_skip:
+                cov = self.kvc.covered_prefix(layout)
+                if cov.full:
+                    if self._admit_skip(item, layout, real, cov):
+                        continue
+                    break                      # head-of-line blocking
+            # admit on PAGES, not slots: prefill pages (prefix-shared
+            # ones are free), one decode page of headroom, plus the
+            # watermark of active slots whose next write takes a page
+            upcoming = self._upcoming_allocs()
+            if need + upcoming > self.kvc.pool.free_pages:
+                break                          # head-of-line blocking
+            self.queue.pop(0)
+            slot = self.free_slots.pop(0)
+            self._slot_bind(req.rid, slot)
+            t0 = time.perf_counter()
+            # prefill at the bucket ladder, padded RIGHT: junk tokens
+            # after the real end never enter the cache and, under
+            # causality, cannot reach earlier positions
+            bucket = self._bucket(real)
+            toks = np.zeros(bucket, np.int32)
+            toks[:real] = layout
+            tr = time.perf_counter() if self.recorder.enabled else 0.0
+            with self.trace.span("engine", "prefill", kind="compute",
+                                 rid=req.rid, bucket=bucket):
+                logits, pcache, bh, hlast = self._prefill_fn(bucket)(
+                    self.params, self._tensor(toks[None]), real - 1)
+            if self.recorder.enabled:
+                self.recorder.event(req.rid, "prefill", bucket=bucket,
+                                    dur=time.perf_counter() - tr)
+            self.kvc.attach(slot, layout, pcache["k"][:, 0, :real],
+                            pcache["v"][:, 0, :real])
+            if self._prefix_skip:
+                # copies, so the prompt's hidden states are not kept
+                # alive by the checkpoints
+                self.kvc.store_hidden_prefill(slot, real, bh[0].clone(),
+                                              hlast[0].clone())
+            first = self._sample(logits[0], req, len(item["gen"]))
+            now = time.perf_counter()
+            self.active[slot] = {
+                "req": req, "tokens": item["gen"] + [int(first)],
+                "prefill_s": now - t0,
+                "t0": now,
+                "seq": next(self._seq),
+                "preempts": item["preempts"],
+                **self._latency_state(item, now),
+            }
+            self._first_token(self.active[slot], now)
+            if self._stopped(req, self.active[slot]["tokens"]):
+                self._finish(self.active.pop(slot))
+                self.kvc.release(slot)
+                self.free_slots.append(slot)
 
     # -- preemption under page pressure -------------------------------
     def _preempt(self, slot: int) -> None:
@@ -503,6 +737,38 @@ class PagedServingEngine(_EngineBase):
             self.free_slots.append(slot)
         return done
 
+    def _step(self) -> int:
+        """One batched decode step over all active slots."""
+        with self.trace.span("engine", "admit", kind="sched"):
+            self._admit()
+        # truncate requests whose next token has no cache room left
+        for slot in [s for s in self.active
+                     if self.kvc.lengths[s] >= self.max_len]:
+            self._finish(self.active.pop(slot))
+            self.kvc.release(slot)
+            self.free_slots.append(slot)
+        if not self.active:
+            return 0
+        with self.trace.span("engine", "prepare_writes", kind="pages"):
+            self._prepare_writes()
+        if not self.active:                    # lone request rejected
+            return 0
+        t0 = time.perf_counter()
+        done = self._decode_batch(list(self.active))
+        pool = self.kvc.pool
+        self.counters.append({
+            "t": time.perf_counter(),
+            "queue_depth": len(self.queue),
+            "active": len(self.active) + len(done),
+            "resident": len(self.active) + len(done),
+            "pages_used": pool.used_pages,
+            "page_occupancy": pool.occupancy(),
+            "preemptions": self.preemptions,
+            "decode_ms": (time.perf_counter() - t0) * 1e3,
+        })
+        self._record_step_metrics(self.counters[-1])
+        return len(self.active) + len(done)
+
     def stats(self) -> dict:
         """Aggregate telemetry assembled from the metrics registry
         (the Fig 9 overhead view); safe before the first completion."""
@@ -581,8 +847,8 @@ class ChunkedPagedServingEngine(PagedServingEngine):
     """
 
     def __init__(self, params: Any, cfg: ArchConfig, *, slots: int = 4,
-                 max_len: int = 512, page_size: int = 16,
-                 n_pages: Optional[int] = None,
+                 max_len: int = 512, prefill_buckets=(64, 128, 256),
+                 page_size: int = 16, n_pages: Optional[int] = None,
                  chunk_size: Optional[int] = None,
                  step_tokens: Optional[int] = None,
                  kv_shards: int = 1, tiering: bool = False,
@@ -592,6 +858,7 @@ class ChunkedPagedServingEngine(PagedServingEngine):
                  flight_recorder=False, failure_plan=None,
                  device: DeviceLike = None):
         super().__init__(params, cfg, slots=slots, max_len=max_len,
+                         prefill_buckets=prefill_buckets,
                          page_size=page_size, n_pages=n_pages,
                          kv_shards=kv_shards, tiering=tiering,
                          host_pages=host_pages,
@@ -840,23 +1107,46 @@ ServingEngine = ChunkedPagedServingEngine
 def make_engine(params: Any, cfg: ArchConfig, *,
                 engine: str = "chunked", disagg: bool = False,
                 **kwargs) -> _EngineBase:
-    """Engine factory.  This slice builds the chunked engine for the
-    paged families; the whole-prompt "paged" and the "dense" engines,
-    ``disagg=True``, and the families without a paged layout raise
+    """Engine factory.  `engine` selects the scheduler: "chunked"
+    (default — chunked prefill under a token budget), "paged"
+    (whole-prompt prefill over AGAS pages) or "dense" (static
+    slot-pool baseline), for the dense and audio families.
+    ``disagg=True``, tiering, sharded pools, failure plans, the moe
+    family and the families without a paged layout (which the
+    reference serves through the dense engine) raise
     `NotImplementedError` naming their ROADMAP item.  ``device``
     (default ``"cuda"``) must be where `params` live."""
     if engine not in ("chunked", "paged", "dense"):
         raise ValueError(f"unknown engine {engine!r}")
+    if disagg and engine != "chunked":
+        raise ValueError(
+            "disaggregated prefill/decode requires the chunked engine")
     if disagg:
         raise _not_ported("the disaggregated engine", "Queue A item 9")
-    if engine != "chunked":
-        raise _not_ported(f"the {engine!r} engine", "Queue A item 10")
     if cfg.family not in PAGED_FAMILIES:
         raise _not_ported(f"serving the {cfg.family!r} family",
                           "Queue A item 13")
     if cfg.family not in T.PORTED_FAMILIES:
         raise _not_ported(f"serving the {cfg.family!r} family",
                           "Queue A item 2")
-    kwargs.pop("prefill_workers", None)
-    kwargs.pop("decode_workers", None)
-    return ChunkedPagedServingEngine(params, cfg, **kwargs)
+    if engine == "chunked":
+        kwargs.pop("prefill_workers", None)
+        kwargs.pop("decode_workers", None)
+        return ChunkedPagedServingEngine(params, cfg, **kwargs)
+    if engine == "paged":
+        kwargs.pop("chunk_size", None)
+        kwargs.pop("step_tokens", None)
+        return PagedServingEngine(params, cfg, **kwargs)
+    # the reference's dense engine drops the page-pool options; the
+    # port refuses the ones whose subsystems it does not have yet
+    # rather than drop them unseen
+    _refuse_unported(tiering=kwargs.get("tiering", False),
+                     host_pages=kwargs.get("host_pages", 0),
+                     kv_shards=kwargs.get("kv_shards", 1),
+                     failure_plan=kwargs.get("failure_plan"))
+    for k in ("page_size", "n_pages", "chunk_size", "step_tokens",
+              "kv_shards", "mesh", "rebalance_tolerance", "tiering",
+              "host_pages", "prefix_cache_compute", "pin_threshold",
+              "prefill_workers", "decode_workers", "failure_plan"):
+        kwargs.pop(k, None)
+    return DenseServingEngine(params, cfg, **kwargs)

@@ -320,8 +320,8 @@ class PagePool:
         else:
             idx = torch.as_tensor(np.asarray(rows, np.int64),
                                   device=self.device)
-            self.pages["k"][:, idx] = kd
-            self.pages["v"][:, idx] = vd
+            self.pages["k"].index_copy_(1, idx, kd)
+            self.pages["v"].index_copy_(1, idx, vd)
 
     def copy_page(self, src_row: int, dst_row: int) -> None:
         """COW: clone a page's contents under a fresh global name."""
@@ -607,6 +607,14 @@ class PagedKVCache:
                 self.pool.store_hidden(addr, boundary[j])
             else:
                 self.pool.store_hidden(addr, last)
+
+    def store_hidden_prefill(self, slot: int, real: int,
+                             boundary: torch.Tensor,
+                             last: torch.Tensor) -> None:
+        """Checkpoint a whole-prompt prefill's page-boundary
+        activations — exactly the chunk case starting at 0 (attach
+        created one addr per page of ``real``)."""
+        self.store_hidden_chunk(slot, 0, real, boundary, last)
 
     # -- chunked prefill (DESIGN.md §4b) ------------------------------
     def begin_chunk(self, slot: int, tokens: np.ndarray,

@@ -1,14 +1,19 @@
-"""The CUDA paged-attention kernels against their plain PyTorch
-versions, on the card only (marker ``cuda``).  This file imports no JAX,
-so it runs on a GPU machine that has only PyTorch:
+"""The CUDA attention kernels against their plain PyTorch versions, on
+the card only (marker ``cuda``).  This file imports no JAX, so it runs
+on a GPU machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Small shapes from a numpy seed: flat and sharded pools, window 0 and 6,
-one or two KV heads; fp32 atol 1e-5, bf16 atol 2e-2 (the summation
-orders differ).  Each launch adds exactly one to its wrapper's count.
-`chip_smoke.py` makes the same comparison at yi-6b's full width.
-Without a card every case skips.
+Small shapes from a numpy seed.  Paged kernels: flat and sharded
+pools, window 0 and 6, one or two KV heads; fp32 atol 1e-5, bf16 atol
+2e-2 (the summation orders differ).  Flash kernel: causal and not,
+window 0 and 24, a `q_offset` continuation and lengths that are not a
+multiple of its 64-key tile, 2 or 4 query heads per KV head; fp32 atol
+2e-5 (the reference's flash tolerance), bf16 atol 3e-2.  Each launch
+adds exactly one to its wrapper's count.  `chip_smoke.py` makes the
+same comparisons at yi-6b's full width.  Without a card those cases
+skip; the check that the kernel path refuses a CPU tensor runs
+anywhere.
 """
 
 import numpy as np
@@ -72,3 +77,50 @@ def test_cuda_kernels_match_plain(dtype, tol, kvh):
                                           "paged_prefill_attention_btd": 1}
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+FLASH_SHAPES = [  # (B, Sq, Sk, H, KV, D, q_offset)
+    (2, 128, 128, 4, 2, 16, 0),
+    (1, 100, 100, 8, 2, 32, 0),
+    (1, 40, 90, 4, 1, 64, 50),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5),
+                                       ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("shape", FLASH_SHAPES,
+                         ids=["gqa2", "tail", "offset"])
+def test_cuda_flash_kernel_matches_plain(dtype, tol, shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel is CUDA C++ and "
+                    "has no CPU mode")
+    from repro_torch.kernels.attention import flash, ops, ref
+    b, sq, sk, h, kvh, d, off = shape
+    rng = np.random.default_rng(sq + sk)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .cuda().to(getattr(torch, dtype))
+               for s in ((b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d)))
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for causal in (True, False):
+            for window in (0, 24):
+                kw = dict(causal=causal, window=window, q_offset=off)
+                flash.reset_launches()
+                got = ops.flash_attention(q, k, v, **kw)
+                want = ref.flash_attention_ref(q, k, v, **kw)
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=tol, rtol=0)
+                assert flash.LAUNCHES == {"flash_attention_bhsd": 1}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def test_flash_kernel_path_refuses_cpu_tensors():
+    from repro_torch.kernels.attention import flash, ops
+    q = torch.zeros(1, 8, 2, 16)
+    k = torch.zeros(1, 8, 1, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(q, k, k, use_kernel=True)
+    assert flash.LAUNCHES["flash_attention_bhsd"] == 0

@@ -201,10 +201,16 @@ def test_mid_prefill_preemption_matches_reference_and_solo(model, ref_copies):
 def test_make_engine_raises_for_what_is_not_ported(model):
     _, tcfg, _, tparams = model
     kw = dict(slots=2, max_len=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        make_engine(tparams, tcfg, engine="paged", **kw)
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        make_engine(tparams, tcfg, engine="dense", **kw)
+    for engine in ("paged", "dense"):
+        with pytest.raises(NotImplementedError, match="Queue A item 7"):
+            make_engine(tparams, tcfg, engine=engine, tiering=True, **kw)
+        with pytest.raises(NotImplementedError, match="Queue A item 8"):
+            make_engine(tparams, tcfg, engine=engine, kv_shards=2, **kw)
+        with pytest.raises(NotImplementedError, match="Queue A item 9"):
+            make_engine(tparams, tcfg, engine=engine,
+                        failure_plan=object(), **kw)
+        with pytest.raises(ValueError, match="requires the chunked"):
+            make_engine(tparams, tcfg, engine=engine, disagg=True, **kw)
     with pytest.raises(NotImplementedError, match="Queue A item 9"):
         make_engine(tparams, tcfg, disagg=True, **kw)
     with pytest.raises(NotImplementedError, match="Queue A item 7"):

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor any module
 of the reference package `repro`, at run time (a subprocess that
-serves a request on the CPU ends with neither in `sys.modules`) and in
-its sources (`src/repro_torch/` and `chip_smoke.py`)."""
+serves a request on the CPU through each of the chunked, whole-prompt
+paged and dense engines ends with neither in `sys.modules`) and in its
+sources (`src/repro_torch/` and `chip_smoke.py`)."""
 
 import os
 import re
@@ -29,6 +30,13 @@ fut = eng.submit(Request(0, np.arange(20, dtype=np.int32),
                          max_new_tokens=3))
 eng.run_to_completion()
 assert len(fut.get().tokens) == 3
+for engine in ("paged", "dense"):
+    eng = make_engine(params, cfg, engine=engine, slots=2, max_len=64,
+                      prefill_buckets=(32,), device="cpu")
+    fut = eng.submit(Request(1, np.arange(20, dtype=np.int32),
+                             max_new_tokens=3))
+    eng.run_to_completion()
+    assert len(fut.get().tokens) == 3, engine
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))
