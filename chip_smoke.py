@@ -1,7 +1,8 @@
 """GPU smoke run of the PyTorch port: builds the CUDA kernels, holds
 each against its plain PyTorch version, times them, and serves
 full-width yi-6b through the chunked, the whole-prompt paged and the
-dense engines.
+dense engines, then full-width falcon-mamba-7b (Mamba-1) through the
+dense engine.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -11,9 +12,10 @@ Phases, one JSON line each (any failure exits non-zero before the
 last line):
 
 1. the card: ``nvidia-smi --query-gpu=name,power.limit`` as printed;
-2. build: the paged-attention and flash-attention kernels compiled by
-   nvcc from ``src/repro_torch/kernels/attention/csrc/`` into
-   ``build/repro_torch_kernels/``, one nvcc each, started together;
+2. build: the paged-attention, flash-attention and selective-scan
+   kernels compiled by nvcc from ``src/repro_torch/kernels/*/csrc/``
+   into ``build/repro_torch_kernels/``, one nvcc each, started
+   together;
 3. kernel against plain version on random inputs.  Paged kernels at
    the serve configuration's shapes: yi-6b's attention (H 32, KV 4,
    D 128), page 16, block tables of max_len / page = 128 pages, decode
@@ -64,13 +66,47 @@ last line):
    distinct live K/V page once, q and o once; flash: q, k, v and o
    once) and its flops (4 * head_dim per visible query, head and key:
    the live causal area) over 989 TFLOP/s (H100 SXM data-sheet peaks);
-6. the kernels line: route, source, the TPU kernel replaced, launches
-   on its path's counted wave, error, times and bound (step 5's);
-7. ``{"ok": true, "device": {...}}``.
+6. selective scan (the yi-6b weights freed first): the kernel against
+   its plain version (`ref.selective_scan_fused_ref`) on random inputs
+   at falcon-mamba-7b's d_inner 8192 and state 16, at the reference
+   test's input scale: prefill B 1 from a zero state at S over the
+   dense buckets (256-1536) and S 1000, decode B 8 x S 1 from a random
+   state; y and the final state at fp32 atol 1e-5 + rtol 1e-5 (the
+   reference's scan tolerance, `test_kernels.py`), and once more with
+   the final state written in place over the initial one (as the
+   decode step does);
+7. falcon-mamba-7b end to end: random bf16 weights from seed 0 (64
+   layers, d_model 4096); a 1536-token prompt's logits through
+   `T.prefill`, then three `T.decode_step`s from its state, through the
+   kernel and through the plain path (the chunked associative scan and
+   the sequential decode step), held like yi-6b's (2.5% of the largest
+   logit, or twice a control's distance (see CONTROL_FACTOR), same
+   argmax).  Every layer's scan inputs, in the prefill and in each
+   decode step on the kernel path, are held as they pass: the kernel
+   against its plain version on them, at a bound derived from the
+   rounding (``scan_serve_bounds``).  Then ``make_engine(params,
+   cfg)`` (which falls back to the dense engine: 8 slots of 2048, the
+   buckets 256-1536) serves the 8 requests of step 4 (vocab 65024, 32
+   new tokens each), one counted wave: the scan's launches must equal
+   n_layers x (prefills + decode steps) and the attention kernels'
+   stay 0;
+8. replay: each recorded scan call of that wave (prefill (1, bucket)
+   from a zero state, decode (8, 1) from a state) again on random
+   inputs against the plain version, then timed as the whole sequence,
+   and its prefill and decode calls apart as extra lines (no single
+   PyTorch call computes a selective scan: library time null).  Bound:
+   the larger of the bytes (dt, x, y (B, S, D), B, C (B, S, N), a,
+   h0 when given, hT, all f32) over 3.35 TB/s and the operations (one
+   exp and six flops per (t, d, n), one per (t, d)) over the 67 TFLOP/s
+   float32 peak;
+9. the kernels line: route, source, the TPU kernel replaced, launches
+   on its path's counted wave, error, times and bound (steps 5 and 8);
+10. ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -80,6 +116,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16, data sheet
+FP32_FLOPS_PER_S = 67e12           # H100 SXM float32 (no tensor cores)
 FP32_ATOL = 1e-5                   # paged kernels
 FLASH_FP32_ATOL = 2e-5             # flash kernel
 BF16_ULP = 2.0 ** -7               # a bf16 ulp, relative, at its largest
@@ -91,6 +128,15 @@ FLASH_TOL = dict(TOL, float32="atol 2e-5")
 # carries it; held to 2.5% of the largest logit, and the argmax must
 # agree
 LOGIT_REL_TOL = 2.5e-2
+# falcon-mamba-7b's 64 bf16 layers amplify float-order differences of
+# the f32 scan past that: two plain versions of the scan (the chunked
+# associative scan and the sequential recurrence), both exact up to
+# rounding, give prefill logits 2.9% of the largest apart on an H100.
+# So its kernel-path logits are held to the larger of LOGIT_REL_TOL and
+# CONTROL_FACTOR times that control difference, measured in the same
+# run; the kernel itself is held to the rounding on the layers' own
+# scan inputs (`scan_serve_bounds`)
+CONTROL_FACTOR = 2.0
 
 # the serve configuration; the kernel checks take their shapes from it
 PS, MAX_LEN, SLOTS, CHUNK = 16, 2048, 8, 256
@@ -101,6 +147,11 @@ H, KV, D = 32, 4, 128              # yi-6b's attention
 IDLE = (1, 6)                      # idle slots of the synthetic decode batch
 DECODE, PREFILL = "paged_attention_bhd", "paged_prefill_attention_btd"
 FLASH = "flash_attention_bhsd"
+SCAN = "selective_scan"
+SCAN_D, SCAN_N = 8192, 16          # falcon-mamba-7b's d_inner and state
+SCAN_LENGTHS = (256, 512, 768, 1024, 1280, 1536, 1000)
+SCAN_ATOL = SCAN_RTOL = 1e-5       # the reference's scan tolerance
+UNIT_ROUNDOFF = 2.0 ** -24         # float32
 # the whole-prompt engines' prefill buckets: every prompt of the wave
 # (200-1500 tokens) lands on one of them
 BUCKETS = (256, 512, 768, 1024, 1280, 1536)
@@ -278,24 +329,26 @@ def compare(name, q, kp, vp, tables, clocks, window=0):
     return error_ratio(kern(), plain(), plain_abs, FP32_ATOL)
 
 
-def time_sequence(name, kern, plain, lib, bounds, gpu, **line):
-    """Time lists of thunks in bf16 — kernel, plain version, library
-    call — and average the bounds ((bytes_ms, ops_ms) per call), each
-    per launch.  Kernel and plain run plain, kernel, kernel, plain, the
-    lower of each pair kept."""
+def time_sequence(name, kern, plain, lib, bounds, gpu, dtype="bfloat16",
+                  **line):
+    """Time lists of thunks — kernel, plain version, library call (None
+    where no PyTorch call computes the function) — and average the
+    bounds ((bytes_ms, ops_ms) per call), each per launch.  Kernel and
+    plain run plain, kernel, kernel, plain, the lower of each pair
+    kept."""
     iters = max(2, 40 // len(kern))
     p1 = time_ms(plain, iters)
     k1 = time_ms(kern, iters)
     k2 = time_ms(kern, iters)
     p2 = time_ms(plain, iters)
-    lib_ms = time_ms(lib, iters)
+    lib_ms = None if lib is None else time_ms(lib, iters)
     tb = sum(b for b, _ in bounds)
     to = sum(o for _, o in bounds)
     tmax = sum(max(b, o) for b, o in bounds)
     out = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
            "library_ms": lib_ms, "bound_ms": tmax / len(bounds),
            "bound_by": "bytes" if tb >= to else "operations"}
-    emit({"timing": name, "gpu": gpu, "dtype": "bfloat16",
+    emit({"timing": name, "gpu": gpu, "dtype": dtype,
           "calls": len(kern), **line, "kernel_ms": [k1, k2],
           "plain_ms": [p1, p2], "library_ms": lib_ms,
           "bound_ms": out["bound_ms"], "bound_by": out["bound_by"]})
@@ -573,13 +626,16 @@ def wave_line(eng, cfg, gpu, engine, reqs, comps, wall, **extra):
 
 def reset_launches():
     from repro_torch.kernels.attention import flash, paged
+    from repro_torch.kernels.scan import scan
     paged.reset_launches()
     flash.reset_launches()
+    scan.reset_launches()
 
 
 def read_launches():
     from repro_torch.kernels.attention import flash, paged
-    return {**paged.LAUNCHES, **flash.LAUNCHES}
+    from repro_torch.kernels.scan import scan
+    return {**paged.LAUNCHES, **flash.LAUNCHES, **scan.LAUNCHES}
 
 
 def check_launches(cfg, engine, launches, rec, ran):
@@ -593,26 +649,34 @@ def check_launches(cfg, engine, launches, rec, ran):
                  f"layers make {want}")
 
 
-def logits_check(name, outs, **line):
+def logits_check(name, outs, control=None, **line):
     """Kernel vs plain logits: within LOGIT_REL_TOL of the largest
-    plain logit, same argmax, finite."""
+    plain logit, same argmax, finite.  With `control` (logits of a
+    second plain float order), within the larger of that and
+    CONTROL_FACTOR times the control's own distance from plain."""
     import torch
     diff = (outs[True] - outs[False]).abs().max().item()
     scale = outs[False].abs().max().item()
+    limit = LOGIT_REL_TOL * scale
+    if control is not None:
+        control_diff = (control - outs[False]).abs().max().item()
+        limit = max(limit, CONTROL_FACTOR * control_diff)
+        line.update(control_max_abs_diff=control_diff,
+                    control_factor=CONTROL_FACTOR)
     finite = bool(torch.isfinite(outs[True]).all())
     top2 = outs[False].topk(2, dim=-1).values
     argmax_equal = bool((outs[True].argmax(-1) ==
                          outs[False].argmax(-1)).all())
-    ok = finite and diff <= LOGIT_REL_TOL * scale and argmax_equal
+    ok = finite and diff <= limit and argmax_equal
     emit({"check": name, "shape": list(outs[True].shape), **line,
           "max_abs_diff": diff, "max_abs_logit": scale,
-          "rel_tol": LOGIT_REL_TOL, "finite": finite,
+          "rel_tol": LOGIT_REL_TOL, "limit": limit, "finite": finite,
           "argmax_equal": argmax_equal,
           "plain_top2_margin": (top2[..., 0] - top2[..., 1]).min().item(),
           "ok": ok})
     if not ok:
         fail(f"{name}: kernel vs plain differ by {diff} (largest logit "
-             f"{scale}), argmax equal: {argmax_equal}")
+             f"{scale}, limit {limit}), argmax equal: {argmax_equal}")
 
 
 def phase_logits(params, cfg):
@@ -809,6 +873,374 @@ def phase_replay_flash(gpu: str, shapes):
     return worst, times
 
 
+# -- selective scan (falcon-mamba-7b) ---------------------------------------
+
+def scan_inputs(gen, b, s, with_state):
+    """Random inputs of the fused scan at the reference test's scale
+    (`test_kernels.py` draws da = exp(-|N(0,1)|), dbx = 0.1 N(0,1),
+    c = N(0,1)): dt = |N(0,1)| and a = -U(0.5, 1.5), so da = exp(dt a)
+    spans the same range; x, b = 0.3 N(0,1), so dbx = dt x b is of
+    dbx's size; c = N(0,1); h0 = 0.3 N(0,1), or None (zero state)."""
+    import torch
+    kw = dict(generator=gen, device="cuda")
+    dt = torch.randn(b, s, SCAN_D, **kw).abs()
+    x = torch.randn(b, s, SCAN_D, **kw) * 0.3
+    bm = torch.randn(b, s, SCAN_N, **kw) * 0.3
+    cm = torch.randn(b, s, SCAN_N, **kw)
+    a = -(torch.rand(SCAN_D, SCAN_N, **kw) + 0.5)
+    h0 = torch.randn(b, SCAN_D, SCAN_N, **kw) * 0.3 if with_state else None
+    return dt, x, bm, cm, a, h0
+
+
+def scan_serve_bounds(dt, x, bm, cm, a, h0):
+    """Per-element bounds on |kernel - plain| for inputs of any scale
+    (the model's own, at serve scale), from the rounding.  Per step,
+    each version rounds exp(dt a) within 2 float32 ulps (u = 2^-24),
+    the products and the sum within 1 each; so the two h_t differ by
+    at most 12 u m_t plus the decayed difference carried in, where
+    m_t = da_t m_{t-1} + |dbx_t| (m_{-1} = |h0|) bounds every term of
+    h_t: |h_T - h'_T| <= 12 u E_T with E_t = da_t E_{t-1} + m_t.  y_t
+    adds its N-term dot summed in another order: |y_t - y'_t| <=
+    u (12 sum_n E_t |c_t| + 2 N sum_n m_t |c_t|).  Returns the bounds on
+    y and on the final state, and the largest E/m ratio (the steps a
+    rounding survives)."""
+    import torch
+    n = a.shape[-1]
+    m = torch.zeros_like(dt[:, 0, :, None] * a) if h0 is None \
+        else h0.abs().clone()
+    e = torch.zeros_like(m)
+    ty = torch.empty_like(dt)
+    for t in range(dt.shape[1]):
+        da = torch.exp(dt[:, t, :, None] * a)
+        m = da * m + (dt[:, t] * x[:, t]).abs()[..., None] * \
+            bm[:, t, None, :].abs()
+        e = da * e + m
+        c = cm[:, t, None, :].abs()
+        ty[:, t] = UNIT_ROUNDOFF * (12 * (e * c).sum(-1) +
+                                    2 * n * (m * c).sum(-1))
+    memory = (e / m.clamp_min(1e-30)).max().item()
+    return ty, 12 * UNIT_ROUNDOFF * e, {"bound": "rounding", "ulps": 12,
+                                        "max_E_over_m": memory}
+
+
+def scan_error(dt, x, bm, cm, a, h0, serve=False, kernel=None):
+    """(max abs error, max error over its tolerance, tolerance note) of
+    the kernel's y and final state (`kernel`: the wrapper, by default
+    the module's current one) against the plain version's."""
+    import torch
+    from repro_torch.kernels.scan import ref, scan
+    kernel = kernel or scan.selective_scan_fused
+    y, h_t = kernel(dt, x, bm, cm, a, h0)
+    yp, hp = ref.selective_scan_fused_ref(dt, x, bm, cm, a, h0)
+    if serve:
+        ty, th, note = scan_serve_bounds(dt, x, bm, cm, a, h0)
+    else:
+        ty = SCAN_ATOL + SCAN_RTOL * yp.abs()
+        th = SCAN_ATOL + SCAN_RTOL * hp.abs()
+        note = {"atol": SCAN_ATOL, "rtol": SCAN_RTOL}
+    err, ratio = 0.0, 0.0
+    for got, want, tol in ((y, yp, ty), (h_t, hp, th)):
+        diff = (got - want).abs()
+        err = max(err, diff.max().item())
+        ratio = max(ratio, (diff / tol.clamp_min(1e-30)).max().item())
+        if not bool(torch.isfinite(got).all()):
+            ratio = float("inf")
+    return err, ratio, note
+
+
+def check_scan(what, call):
+    err, ratio, note = scan_error(*call)
+    dt, h0 = call[0], call[5]
+    emit({"check": SCAN, "inputs": what, "batch": dt.shape[0],
+          "steps": dt.shape[1], "d_inner": dt.shape[2],
+          "state": call[4].shape[-1], "h0": h0 is not None,
+          "max_abs_err": err, "err_over_tol": ratio, "tol": note,
+          "ok": ratio <= 1.0})
+    if ratio > 1.0:
+        fail(f"{SCAN} disagrees with its plain version ({what}, B="
+             f"{dt.shape[0]}, S={dt.shape[1]}, h0 {h0 is not None}): max "
+             f"abs err {err}, {ratio} times its tolerance")
+    return err
+
+
+def scan_bound(dt, a, h0):
+    """(bytes_ms, ops_ms) of one scan call: dt, x, y (B, S, D), B, C
+    (B, S, N), a, h0 when given and hT, f32, each once; one exp and six
+    flops per (t, d, n) and one flop per (t, d)."""
+    b, s, d = dt.shape
+    n = a.shape[-1]
+    floats = 3 * b * s * d + 2 * b * s * n + d * n + \
+        (2 if h0 is not None else 1) * b * d * n
+    ops = b * s * d * (7 * n + 1)
+    return floats * 4 / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS_PER_S * 1e3
+
+
+def time_scan(calls, gpu, **line):
+    """Time a list of scan calls (`time_sequence`, float32): kernel,
+    plain version, no library call."""
+    from repro_torch.kernels.scan import ref, scan
+
+    def kern(c):
+        return lambda: scan.selective_scan_fused(*c)
+
+    def plain(c):
+        return lambda: ref.selective_scan_fused_ref(*c)
+    return time_sequence(SCAN, [kern(c) for c in calls],
+                         [plain(c) for c in calls], None,
+                         [scan_bound(c[0], c[4], c[5]) for c in calls],
+                         gpu, dtype="float32", **line)
+
+
+def phase_scan_kernel():
+    """The scan kernel on random inputs at falcon-mamba-7b's width:
+    prefill B 1 from a zero state at each S of SCAN_LENGTHS, decode
+    B 8 x S 1 from a random state, and that decode again with the final
+    state written over the initial one (``out_state=h0``)."""
+    import torch
+    from repro_torch.kernels.scan import ref, scan
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = 0.0
+    for s in SCAN_LENGTHS:
+        worst = max(worst, check_scan("random", scan_inputs(gen, 1, s,
+                                                            False)))
+    decode = scan_inputs(gen, SLOTS, 1, True)
+    worst = max(worst, check_scan("random", decode))
+    _, want = ref.selective_scan_fused_ref(*decode)
+    state = decode[5].clone()
+    scan.selective_scan_fused(*decode[:5], state, out_state=state)
+    err = (state - want).abs().max().item()
+    ok = bool(((state - want).abs() <=
+               SCAN_ATOL + SCAN_RTOL * want.abs()).all())
+    emit({"check": SCAN, "inputs": "random, final state in place",
+          "batch": SLOTS, "steps": 1, "max_abs_err": err,
+          "tol": {"atol": SCAN_ATOL, "rtol": SCAN_RTOL}, "ok": ok})
+    if not ok:
+        fail(f"{SCAN} with out_state=h0 disagrees with its plain version: "
+             f"max abs err {err}")
+    return max(worst, err)
+
+
+def record_scan_calls(eng, T_):
+    """Keep the shape of every prefill `eng` runs and the batch of every
+    decode step, and return the list and a function that undoes the
+    `T.decode_step` wrapper."""
+    calls = []
+    prefill_fn = eng._prefill_fn
+
+    def prefill_fn_rec(bucket):
+        fn = prefill_fn(bucket)
+
+        def run(params, tokens, last_index):
+            calls.append(("prefill", tokens.shape[0], tokens.shape[1]))
+            return fn(params, tokens, last_index)
+        return run
+    eng._prefill_fn = prefill_fn_rec
+    decode_step = T_.decode_step
+
+    def decode_step_rec(params, cache, batch, cfg, **kw):
+        calls.append(("decode", batch["tokens"].shape[0], 1))
+        return decode_step(params, cache, batch, cfg, **kw)
+    T_.decode_step = decode_step_rec
+
+    def undo():
+        T_.decode_step = decode_step
+    return calls, undo
+
+
+def hold_scan_calls(substitute=None):
+    """Wrap the models' call of the scan kernel's wrapper.  Without
+    `substitute`, hold each call's kernel result against the plain
+    version on a copy of its inputs (`scan_error` at the rounding
+    bound), before the call itself runs, and keep (max abs err, err
+    over bound, the bound's largest E/m) per call in the returned
+    list; with it, run `substitute` (a function of
+    `ref.selective_scan_fused_ref`'s contract) in the kernel's place.
+    Returns (list, undo)."""
+    from repro_torch.kernels.scan import scan
+    held = []
+    orig = scan.selective_scan_fused
+
+    def rec(dt, x, b, c, a, h0=None, *, out_state=None):
+        if substitute is not None:
+            y, h_t = substitute(dt, x, b, c, a, h0)
+            return y, (h_t if out_state is None else out_state.copy_(h_t))
+        copy = tuple(None if t is None else t.detach().clone()
+                     for t in (dt, x, b, c, a, h0))
+        err, ratio, note = scan_error(*copy, serve=True, kernel=orig)
+        held.append((err, ratio, note["max_E_over_m"]))
+        del copy
+        return orig(dt, x, b, c, a, h0, out_state=out_state)
+    scan.selective_scan_fused = rec
+
+    def undo():
+        scan.selective_scan_fused = orig
+    return held, undo
+
+
+def phase_ssm_logits(params, cfg):
+    """A 1536-token prompt through `T.prefill`, then three decode steps
+    from its state (tokens from a seed), three ways: through the kernel
+    (holding every layer's scan, in the prefill and in each decode
+    step, against the plain version on its own inputs at the rounding
+    bound), through the plain path, and as the control: the kernel
+    path with the scan's sequential plain version
+    (`ref.selective_scan_fused_ref`) in the kernel's place, a second
+    float order of the same function."""
+    import torch
+    from repro_torch.kernels.scan import ref
+    from repro_torch.models import transformer as T_
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    s = BUCKETS[-1]
+    toks = torch.randint(0, cfg.vocab_size, (1, s), generator=gen,
+                         device="cuda")
+    nxt = torch.randint(0, cfg.vocab_size, (3, 1, 1), generator=gen,
+                        device="cuda")
+    outs = {}
+    held = []
+    for mode in ("kernel", "plain", "control"):
+        if mode == "kernel":
+            held, undo = hold_scan_calls()
+        elif mode == "control":
+            _, undo = hold_scan_calls(ref.selective_scan_fused_ref)
+        else:
+            undo = None
+        try:
+            use_kernel = mode != "plain"
+            hidden, cache = T_.prefill(params, {"tokens": toks}, cfg,
+                                       use_kernel=use_kernel)
+            logits = [T_.logits_fn(params, hidden).float()]
+            for i in range(nxt.shape[0]):
+                lg, cache = T_.decode_step(params, cache,
+                                           {"tokens": nxt[i]}, cfg,
+                                           use_kernel=use_kernel)
+                logits.append(lg.float())
+        finally:
+            if undo is not None:
+                undo()
+        outs[mode] = logits
+        del cache
+    L = cfg.n_layers
+    if len(held) != L * (1 + nxt.shape[0]):
+        fail(f"{len(held)} scan calls in one prefill and {nxt.shape[0]} "
+             f"decode steps of {L} layers")
+    worst = 0.0
+    for step in range(1 + nxt.shape[0]):
+        part = held[step * L:(step + 1) * L]
+        ratios = [r for _, r, _ in part]
+        at = max(range(L), key=ratios.__getitem__)
+        err = max(e for e, _, _ in part)
+        ok = ratios[at] <= 1.0
+        emit({"check": SCAN, "inputs": "serve, every layer",
+              "call": "prefill" if step == 0 else f"decode step {step}",
+              "batch": 1, "steps": s if step == 0 else 1, "layers": L,
+              "max_abs_err": err, "err_over_tol": ratios[at],
+              "worst_layer": at, "tol": {"bound": "rounding", "ulps": 12},
+              "max_E_over_m": max(m for _, _, m in part), "ok": ok})
+        if not ok:
+            fail(f"{SCAN} disagrees with its plain version on layer {at}'s "
+                 f"own inputs ({'prefill' if step == 0 else 'decode'}): "
+                 f"{ratios[at]} times its rounding bound")
+        worst = max(worst, err)
+    for i in range(len(outs["kernel"])):
+        logits_check("ssm_prefill_logits" if i == 0 else "ssm_decode_logits",
+                     {True: outs["kernel"][i], False: outs["plain"][i]},
+                     control=outs["control"][i],
+                     **({"tokens": s} if i == 0 else {"step": i}))
+    return worst
+
+
+def phase_ssm_serve(gpu: str):
+    """falcon-mamba-7b: random weights, the logits checks, one counted
+    wave through `make_engine`'s dense fallback."""
+    import numpy as np
+    import torch
+    import repro_torch.configs as configs
+    from repro_torch.device import make_generator
+    from repro_torch.models import transformer as T_
+    from repro_torch.serving.engine import (DenseServingEngine, Request,
+                                            make_engine)
+
+    cfg = configs.get("falcon-mamba-7b")
+    if (cfg.family, cfg.mamba_version, cfg.d_inner, cfg.ssm_state) != \
+            ("ssm", 1, SCAN_D, SCAN_N):
+        fail(f"falcon-mamba-7b is not Mamba-1 at d_inner {SCAN_D}, "
+             f"state {SCAN_N}")
+    gc.collect()                   # engines of the yi-6b phases sit in
+    torch.cuda.empty_cache()       # reference cycles with their weights
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = T_.init_params(make_generator(0, "cuda"), cfg)
+    torch.cuda.synchronize()
+    emit({"weights": cfg.name,
+          "params": sum(int(x.numel()) for x in _leaves(params)),
+          "param_count": cfg.param_count(),
+          "bytes": sum(int(x.numel() * x.element_size())
+                       for x in _leaves(params)),
+          "allocated_before_gb": before / 1e9,
+          "init_s": time.perf_counter() - t0})
+    worst = phase_ssm_logits(params, cfg)
+
+    kw = dict(slots=SLOTS, max_len=MAX_LEN, prefill_buckets=BUCKETS)
+    warm = make_engine(params, cfg, **kw)
+    warm.submit(Request(99, np.arange(300, dtype=np.int32) % cfg.vocab_size,
+                        max_new_tokens=2))
+    warm.run_to_completion()
+    del warm
+
+    eng = make_engine(params, cfg, **kw)
+    if type(eng) is not DenseServingEngine:
+        fail(f"make_engine served {cfg.name} through {type(eng).__name__}")
+    reqs = make_requests(cfg.vocab_size)
+    calls, undo = record_scan_calls(eng, T_)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        futs, wall = drive_wave(eng, reqs)
+        launches = read_launches()
+    finally:
+        undo()
+    comps = check_wave(eng, reqs, futs, cfg.vocab_size)
+    n_prefill = sum(1 for c in calls if c[0] == "prefill")
+    wave_line(eng, cfg, gpu, "dense (ssm fallback)", reqs, comps, wall,
+              wave=0, counted=True, launches=launches, prefills=n_prefill,
+              decode_steps=len(calls) - n_prefill,
+              peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check_launches(cfg, "ssm dense", launches,
+                   {DECODE: [], PREFILL: [], FLASH: [], SCAN: calls},
+                   (SCAN,))
+    return launches[SCAN], calls, worst
+
+
+def phase_replay_scan(gpu: str, calls):
+    """Each recorded scan call of the counted ssm wave, once (every
+    layer runs the same shapes) on random inputs, against the plain
+    version; then timed as the whole sequence, and its prefill and
+    decode calls apart as extra lines."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    built = {"prefill": [], "decode": []}
+    worst = 0.0
+    for kind, b, s in calls:
+        call = scan_inputs(gen, b, s, kind == "decode")
+        err, ratio, _ = scan_error(*call)
+        if ratio > 1.0:
+            fail(f"{SCAN} disagrees with its plain version on a main-path "
+                 f"call ({kind}, B={b}, S={s}): max abs err {err}, "
+                 f"{ratio} times its tolerance")
+        worst = max(worst, err)
+        built[kind].append(call)
+    emit({"check": SCAN, "inputs": "main path", "dtype": "float32",
+          "calls": len(calls), "prefill_steps": [s for k, _, s in calls
+                                                 if k == "prefill"],
+          "decode_calls": len(built["decode"]), "max_abs_err": worst,
+          "tol": {"atol": SCAN_ATOL, "rtol": SCAN_RTOL}, "ok": True})
+    for kind in ("prefill", "decode"):
+        time_scan(built[kind], gpu, inputs="main path", calls_of=kind)
+    times = time_scan(built["prefill"] + built["decode"], gpu,
+                      inputs="main path", calls_of="all")
+    return worst, times
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -831,6 +1263,7 @@ def main() -> None:
     sys.path.insert(0, str(src))
     from repro_torch.kernels import build
     from repro_torch.kernels.attention import flash, paged
+    from repro_torch.kernels.scan import scan
 
     # the fp32 plain versions must not drop to TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -841,7 +1274,7 @@ def main() -> None:
     emit({"gpu": gpu})
 
     t0 = time.perf_counter()
-    libs = build.build_all([paged.SOURCE, flash.SOURCE])
+    libs = build.build_all([paged.SOURCE, flash.SOURCE, scan.SOURCE])
     emit({"build": [str(p.relative_to(ROOT)) for p in libs],
           "build_s": time.perf_counter() - t0})
 
@@ -852,23 +1285,30 @@ def main() -> None:
     flash_shapes = [(b, s) for b, s in recs["paged"][FLASH]]
     worst_main[FLASH], times[FLASH] = phase_replay_flash(gpu, flash_shapes)
 
+    # falcon-mamba-7b (the yi-6b weights went with phase_serve)
+    worst[SCAN] = phase_scan_kernel()
+    scan_launches, scan_calls, worst_serve = phase_ssm_serve(gpu)
+    worst[SCAN] = max(worst[SCAN], worst_serve)
+    worst_main[SCAN], times[SCAN] = phase_replay_scan(gpu, scan_calls)
+
     # each kernel's launches come from its own path's counted wave: the
     # paged kernels from the chunked engine's, flash from the
-    # whole-prompt paged engine's
+    # whole-prompt paged engine's, the scan from falcon-mamba's
     launches = {DECODE: counted["chunked"][DECODE],
                 PREFILL: counted["chunked"][PREFILL],
-                FLASH: counted["paged"][FLASH]}
+                FLASH: counted["paged"][FLASH], SCAN: scan_launches}
     sources = {DECODE: paged.SOURCE, PREFILL: paged.SOURCE,
-               FLASH: flash.SOURCE}
+               FLASH: flash.SOURCE, SCAN: scan.SOURCE}
     replaces = {DECODE: "src/repro/kernels/attention/paged.py:96",
                 PREFILL: "src/repro/kernels/attention/paged.py:207",
-                FLASH: "src/repro/kernels/attention/flash.py:88"}
+                FLASH: "src/repro/kernels/attention/flash.py:88",
+                SCAN: "src/repro/kernels/scan/selective_scan.py:51"}
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": str(sources[name].relative_to(ROOT)),
          "replaces": replaces[name], "launches": launches[name],
          "max_abs_err": max(worst[name], worst_main[name]), **times[name]}
-        for name in (DECODE, PREFILL, FLASH)]})
+        for name in (DECODE, PREFILL, FLASH, SCAN)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -7,7 +7,7 @@ dropping to the CPU on their own.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -51,3 +51,17 @@ def check_device(params, device: DeviceLike) -> torch.device:
             f"parameters live on {have} but the engine was asked to run "
             f"on {dev}")
     return have
+
+
+def use_kernel_for(t: torch.Tensor, use_kernel: Optional[bool]) -> bool:
+    """Whether a call on `t` runs a CUDA kernel, from ``use_kernel`` (the
+    counterpart of the reference's ``use_pallas``): ``None`` runs the
+    kernel on a CUDA tensor and the plain version on a CPU tensor;
+    ``True`` runs the kernel and raises on a CPU tensor; ``False`` runs
+    the plain version (tests and `chip_smoke.py` only)."""
+    if use_kernel is None:
+        return t.device.type == "cuda"
+    if use_kernel and t.device.type != "cuda":
+        raise ValueError(
+            f"use_kernel=True needs CUDA tensors, got {t.device}")
+    return bool(use_kernel)

@@ -2,12 +2,10 @@
 (counterpart of `repro.kernels.attention.ops`), in the reference's
 (B, S, H, D) layout.
 
-``use_kernel`` is the counterpart of the reference's ``use_pallas``:
-
-* ``None`` — the kernel on a CUDA tensor, the plain version on a CPU
-  tensor (the default on every model path);
-* ``True`` — the kernel; a CPU tensor raises;
-* ``False`` — the plain version (tests and `chip_smoke.py` only).
+``use_kernel`` is the counterpart of the reference's ``use_pallas``
+(`repro_torch.device.use_kernel_for`): ``None``, the default on every
+model path, runs the kernel on a CUDA tensor and the plain version on
+a CPU tensor.
 """
 
 from __future__ import annotations
@@ -16,20 +14,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import use_kernel_for
 from repro_torch.kernels.attention import ref
 from repro_torch.kernels.attention.flash import flash_attention_bshd
 from repro_torch.kernels.attention.paged import (paged_attention_bhd,
                                                  paged_prefill_attention_btd)
-
-
-def use_kernel_for(q: torch.Tensor, use_kernel: Optional[bool]) -> bool:
-    """Whether a call on `q` runs the kernel (see the module's note)."""
-    if use_kernel is None:
-        return q.device.type == "cuda"
-    if use_kernel and q.device.type != "cuda":
-        raise ValueError(
-            f"use_kernel=True needs CUDA tensors, got {q.device}")
-    return bool(use_kernel)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -11,7 +11,12 @@ Usage:
       --device cpu --engine dense
 
 ``--engine`` picks the chunked engine (default), the whole-prompt
-paged engine or the dense slot-pool baseline.
+paged engine or the dense slot-pool baseline.  A family without a
+paged layout is served by the dense engine whatever ``--engine`` says,
+as in the reference:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch falcon-mamba-7b --device cpu
 
 Like the reference CLI it serves the reduced config (`cfg.reduced()`)
 with random weights from a seed.  ``--device`` defaults to ``cuda``,

@@ -8,7 +8,9 @@ Entry points (the reference's names and contracts):
                                             (whole-prompt prefill that
                                             builds the dense decode
                                             cache; flash attention)
-  init_cache(cfg, batch, cache_len)         -> dense cache
+  init_cache(cfg, batch, cache_len)         -> dense cache (k/v, or the
+                                            ssm family's (ssm, conv)
+                                            state)
   decode_step(params, cache, batch, cfg)    -> (logits, cache)
   init_paged_cache(cfg, n_rows, page_size)  -> {"k","v"} page arrays
   decode_step_paged(params, pages, batch, cfg) -> (logits, pages)
@@ -22,18 +24,21 @@ pytree across leaf by leaf; the layer loop indexes the stack.
 
 Page pools and dense caches are updated IN PLACE: the K/V scatter is
 an index copy into ``pages["k"]``/``pages["v"]`` (or the dense
-cache's ``k``/``v``), and the returned dict holds the tensors passed
-in.  The reference donates the pool to a jitted step instead
-(`repro.serving.engine`), which XLA lowers to the same in-place
-update on an accelerator.
+cache's ``k``/``v``; the ssm family's decode writes each layer's new
+``ssm``/``conv`` state over its slice of the cache), and the returned
+dict holds the tensors passed in.  The reference donates the pool to a
+jitted step instead (`repro.serving.engine`), which XLA lowers to the
+same in-place update on an accelerator.
 
-Every attention-running function takes ``use_kernel`` (the
-counterpart of ``use_pallas``): None runs the CUDA kernels on CUDA
-tensors and their plain versions on CPU tensors; True on a CPU tensor
-raises; False runs the plain versions (tests and `chip_smoke.py`).
-Only the ``dense`` and ``audio`` families are ported so far; ``moe``
-(GShard routing) is ROADMAP Queue A item 2, and the ``ssm``,
-``hybrid`` and ``vlm`` families item 13.
+Every kernel-running function takes ``use_kernel`` (the counterpart
+of ``use_pallas``): None runs the CUDA kernels on CUDA tensors and
+their plain versions on CPU tensors; True on a CPU tensor raises;
+False runs the plain versions (tests and `chip_smoke.py`).  The
+``dense`` and ``audio`` families and the ``ssm`` family (Mamba-1,
+`models/ssm.py`, whose scans run the selective-scan kernel; whole
+prompt only: it has no paged layout) are ported; ``moe`` (GShard
+routing) is ROADMAP Queue A item 3, and the ``hybrid`` and ``vlm``
+families item 10.
 """
 
 from __future__ import annotations
@@ -45,13 +50,14 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.kernels.attention import ops
 from repro_torch.models import attention as att
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (Params, _init_dense, embed_init,
                                        embed_lookup, rmsnorm, rmsnorm_init,
                                        swiglu)
 
 PAGED_FAMILIES = ("dense", "audio", "moe")
-PORTED_FAMILIES = ("dense", "audio")
+PORTED_FAMILIES = ("dense", "audio", "ssm")
 
 
 def _check_family(cfg: ArchConfig, what: str) -> None:
@@ -61,15 +67,15 @@ def _check_family(cfg: ArchConfig, what: str) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.family!r} layers are not ported yet (ROADMAP Queue A "
-            f"item 2: MoE routing)")
+            f"item 3: MoE routing)")
 
 
 def _check_ported(cfg: ArchConfig, what: str) -> None:
     """The whole-prompt functions serve every family in the reference;
-    the port has the dense and audio stacks so far."""
+    the port has the dense, audio and ssm stacks so far."""
     if cfg.family not in PORTED_FAMILIES:
-        item = "2: MoE routing" if cfg.family == "moe" \
-            else "13: non-paged families"
+        item = "3: MoE routing" if cfg.family == "moe" \
+            else "10: the remaining non-paged families"
         raise NotImplementedError(
             f"{what} of the {cfg.family!r} family is not ported yet "
             f"(ROADMAP Queue A item {item})")
@@ -90,13 +96,14 @@ def _stacked(gen: torch.Generator, n: int, d_in: int, d_out: int,
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
-    """Random parameters for the ``dense``/``audio`` families, drawn
-    from `gen` on its device (a CUDA generator for the card, a CPU one
-    for the tests), in the config's dtype and the reference's stacked
-    layout.  The draws differ from the reference's `jax.random`
-    stream; `models/convert.params_from_numpy` carries the reference's
-    own weights across where a test needs them."""
-    _check_family(cfg, "init_params")
+    """Random parameters for the ``dense``/``audio``/``ssm`` families,
+    drawn from `gen` on its device (a CUDA generator for the card, a CPU
+    one for the tests), in the config's dtype (the ssm family's f32
+    leaves stay f32) and the reference's stacked layout.  The draws
+    differ from the reference's `jax.random` stream;
+    `models/convert.params_from_numpy` carries the reference's own
+    weights across where a test needs them."""
+    _check_ported(cfg, "init_params")
     dt = torch_dtype(cfg.dtype)
     dev = gen.device
     d, L = cfg.d_model, cfg.n_layers
@@ -108,6 +115,10 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
     if not cfg.tie_embeddings:
         params["out_embed"] = embed_init(gen, cfg.vocab_size, d, dt)
     ones = torch.ones((L, d), dtype=dt, device=dev)
+    if cfg.family == "ssm":
+        params["layers"] = {"norm": {"scale": ones},
+                            "ssm": ssm_mod.mamba1_init(gen, cfg, L)}
+        return params
     params["layers"] = {
         "attn_norm": {"scale": ones.clone()},
         "attn": {
@@ -195,7 +206,10 @@ def prefill(params: Params, batch: Dict[str, Any], cfg: ArchConfig,
     right-padded prompt ends before its buffer); `all_hidden` returns
     the whole post-norm hidden (B, S, D) instead.  Every layer's
     attention is one flash-attention call: the CUDA kernel on the
-    card.
+    card.  The ssm family's cache holds each layer's final scan state
+    ``ssm`` (L, B, d_inner, state) f32 and ``conv`` (L, B, K-1,
+    d_inner) instead of k/v; every layer's scan is one selective-scan
+    launch on the card (`models/ssm.mamba1_chunked`).
     """
     _check_ported(cfg, "prefill")
     tokens = batch["tokens"]
@@ -203,7 +217,6 @@ def prefill(params: Params, batch: Dict[str, Any], cfg: ArchConfig,
     x = embed_lookup(params["embed"], tokens)
     if cfg.family == "audio" and "frame_embeds" in batch:
         x = x + batch["frame_embeds"].to(x.dtype)
-    cos, sin = _rope(cfg, torch.arange(s, device=tokens.device))
     win = cfg.sliding_window
     eff = min(s, win) if win else s
 
@@ -214,17 +227,31 @@ def prefill(params: Params, batch: Dict[str, Any], cfg: ArchConfig,
     cache: Dict[str, Any] = {"len": _counter(eff, dev),
                              "cursor": _counter(0 if win else s, dev),
                              "abs": _counter(s, dev)}
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        o, (k, v) = _attn_block(lp, x, cfg, cos, sin,
-                                use_kernel=use_kernel)
-        x = x + o
-        x = x + _mlp_block(lp, x, cfg)
-        ks.append(trim(k))
-        vs.append(trim(v))
-    cache["k"] = torch.stack(ks)
-    cache["v"] = torch.stack(vs)
+    if cfg.family == "ssm":
+        hs, cs = [], []
+        for i in range(cfg.n_layers):
+            lp = _layer(params["layers"], i)
+            y, st = ssm_mod.ssm_block_apply(
+                lp["ssm"], rmsnorm(lp["norm"], x, cfg.norm_eps), cfg,
+                mode="chunked", use_kernel=use_kernel)
+            x = x + y
+            hs.append(st["ssm"])
+            cs.append(st["conv"])
+        cache["ssm"] = torch.stack(hs)
+        cache["conv"] = torch.stack(cs)
+    else:
+        cos, sin = _rope(cfg, torch.arange(s, device=dev))
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            lp = _layer(params["layers"], i)
+            o, (k, v) = _attn_block(lp, x, cfg, cos, sin,
+                                    use_kernel=use_kernel)
+            x = x + o
+            x = x + _mlp_block(lp, x, cfg)
+            ks.append(trim(k))
+            vs.append(trim(v))
+        cache["k"] = torch.stack(ks)
+        cache["v"] = torch.stack(vs)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if all_hidden:
         return x, cache
@@ -238,17 +265,29 @@ def init_cache(cfg: ArchConfig, batch_size: int, cache_len: int,
                device: DeviceLike = None) -> Dict[str, Any]:
     """Allocate the dense decode cache (zeros) on `device` (default
     ``cuda``): k/v (L, B, S', KV, D) with S' = `cache_len`, capped at
-    the window for sliding-window configs, and zero counters."""
+    the window for sliding-window configs, and zero counters.  The ssm
+    family keeps no k/v: ``ssm`` (L, B, d_inner, state) f32 and
+    ``conv`` (L, B, K-1, d_inner) in `dtype`."""
     _check_ported(cfg, "init_cache")
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
+    cache = {"len": _counter(0, dev), "cursor": _counter(0, dev),
+             "abs": _counter(0, dev)}
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        cache["ssm"] = torch.zeros(
+            (L, batch_size, cfg.d_inner, cfg.ssm_state),
+            dtype=torch.float32, device=dev)
+        cache["conv"] = torch.zeros(
+            (L, batch_size, cfg.ssm_conv - 1, cfg.d_inner), dtype=dt,
+            device=dev)
+        return cache
     eff = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
         else cache_len
-    shape = (cfg.n_layers, batch_size, eff, cfg.n_kv_heads, cfg.head_dim)
-    return {"len": _counter(0, dev), "cursor": _counter(0, dev),
-            "abs": _counter(0, dev),
-            "k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+    shape = (L, batch_size, eff, cfg.n_kv_heads, cfg.head_dim)
+    cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
+    cache["v"] = torch.zeros(shape, dtype=dt, device=dev)
+    return cache
 
 
 def _decode_attn(lp: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -267,34 +306,60 @@ def _decode_attn(lp: Params, x: torch.Tensor, cfg: ArchConfig,
     return o.reshape(x.shape[0], 1, -1) @ lp["attn"]["wo"]
 
 
+def _decode_ssm(params: Params, x: torch.Tensor, cache: Dict[str, Any],
+                cfg: ArchConfig, use_kernel: Optional[bool]
+                ) -> torch.Tensor:
+    """The ssm family's layers for one token: each layer's scan runs
+    one step from its cached state (one selective-scan launch on the
+    card, which writes the new state over that layer's slice of the
+    cache), and the new ``conv`` state overwrites its slice too."""
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        h_c, c_c = cache["ssm"][i], cache["conv"][i]
+        y, st = ssm_mod.ssm_block_apply(
+            lp["ssm"], rmsnorm(lp["norm"], x, cfg.norm_eps), cfg,
+            mode="decode", state={"ssm": h_c, "conv": c_c}, out_state=h_c,
+            use_kernel=use_kernel)
+        x = x + y
+        c_c.copy_(st["conv"])
+    return x
+
+
 def decode_step(params: Params, cache: Dict[str, Any],
-                batch: Dict[str, Any], cfg: ArchConfig
+                batch: Dict[str, Any], cfg: ArchConfig,
+                use_kernel: Optional[bool] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step for the whole batch on the shared clock.
 
     batch: tokens (B, 1).  Returns (logits (B, V) f32, cache): the
-    cache's k/v are written in place and the counters advance by one.
-    Sliding-window caches are rings: the write slot wraps at
-    ``cursor % window``.  A full cache writes its last slot again, as
-    the reference's clamped `dynamic_update_slice` does.
+    cache's k/v (or the ssm family's ``ssm``/``conv`` state) are
+    written in place and the counters advance by one.  Sliding-window
+    caches are rings: the write slot wraps at ``cursor % window``.  A
+    full cache writes its last slot again, as the reference's clamped
+    `dynamic_update_slice` does.  The attention families' decode
+    attention is plain torch (the reference has no kernel there);
+    `use_kernel` reaches the ssm family's selective scan.
     """
     _check_ported(cfg, "decode_step")
     tokens = batch["tokens"]
     x = embed_lookup(params["embed"], tokens)
-    cache_len = cache["len"]
-    eff = cache["k"].shape[2]
-    if cfg.sliding_window > 0:
-        pos = cache["cursor"] % eff
+    if cfg.family == "ssm":
+        x = _decode_ssm(params, x, cache, cfg, use_kernel)
     else:
-        pos = torch.clamp(cache["cursor"], max=eff - 1)
-    pos = pos.long().reshape(1)
-    cos, sin = _rope(cfg, cache["abs"][None])
-    aux_len = torch.clamp(cache_len, max=eff - 1)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        x = x + _decode_attn(lp, x, cfg, cos, sin, cache["k"][i],
-                             cache["v"][i], aux_len, pos)
-        x = x + _mlp_block(lp, x, cfg)
+        cache_len = cache["len"]
+        eff = cache["k"].shape[2]
+        if cfg.sliding_window > 0:
+            pos = cache["cursor"] % eff
+        else:
+            pos = torch.clamp(cache["cursor"], max=eff - 1)
+        pos = pos.long().reshape(1)
+        cos, sin = _rope(cfg, cache["abs"][None])
+        aux_len = torch.clamp(cache_len, max=eff - 1)
+        for i in range(cfg.n_layers):
+            lp = _layer(params["layers"], i)
+            x = x + _decode_attn(lp, x, cfg, cos, sin, cache["k"][i],
+                                 cache["v"][i], aux_len, pos)
+            x = x + _mlp_block(lp, x, cfg)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_fn(params, x[:, 0])
     cache = dict(cache, len=cache["len"] + 1,

@@ -21,14 +21,17 @@ Three engines share that skeleton, as in the reference:
   chunked engine takes decode, resume and preemption from it.
 * `DenseServingEngine`: the static-ownership baseline — a bulk
   (slots, max_len) cache with one shared position clock (`T.init_cache`
-  / `T.decode_step`); prompts are left-padded to their bucket.
+  / `T.decode_step`); prompts are left-padded to their bucket.  It is
+  also the engine of the ``ssm`` family, whose recurrent state has no
+  paged layout: `make_engine` sends it there whatever ``engine`` says.
 
 The disaggregated engine, tiering, sharded pools and failure plans are
 not ported yet and raise `NotImplementedError` naming their ROADMAP
 item.
 
-On the card the model steps run the hand-written CUDA attention
-kernels (paged decode, chunked prefill, flash); on the CPU
+On the card the model steps run the hand-written CUDA kernels (paged
+decode, chunked prefill, flash attention; the selective scan for the
+ssm family); on the CPU
 (``device="cpu"``) their plain PyTorch versions.  Page pools and the
 dense cache are updated in place.  Sampling is greedy argmax, or a
 `torch.Generator` seeded with ``rid * 7919 + n_gen``.
@@ -67,11 +70,11 @@ def _refuse_unported(tiering: bool = False, host_pages: int = 0,
                      kv_shards: int = 1, failure_plan=None) -> None:
     """Raise for the options whose subsystems are not ported yet."""
     if kv_shards != 1:
-        raise _not_ported("a sharded page pool", "Queue A item 8")
+        raise _not_ported("a sharded page pool", "Queue A item 5")
     if tiering or host_pages:
-        raise _not_ported("tiering", "Queue A item 7")
+        raise _not_ported("tiering", "Queue A item 4")
     if failure_plan is not None:
-        raise _not_ported("failure plans", "Queue A item 9")
+        raise _not_ported("failure plans", "Queue A item 6")
 
 
 class _EngineBase:
@@ -391,14 +394,26 @@ class DenseServingEngine(_EngineBase):
                 self.free_slots.append(slot)
 
     def _splice_cache(self, slot: int, pcache: dict) -> None:
-        """Write a (L, 1, S', KV, D) prefill cache into `slot`'s rows
-        (zero past S', as the reference pads it) and keep the max of
-        the shared counters."""
-        for key in ("k", "v"):
-            pool, part = self.cache[key], pcache[key]
-            n = part.shape[2]
-            pool[:, slot].zero_()
-            pool[:, slot, :n] = part[:, 0].to(pool.dtype)
+        """Write every entry of a one-request prefill cache (k/v
+        (L, 1, S', KV, D); the ssm family's ``ssm``/``conv`` state) into
+        `slot` of the pool's entry: the batch axis is the first where
+        the part has 1 and the pool `slots`, and the part is zero-padded
+        to the pool's other extents (the reference's `_splice_cache`).
+        The shared counters keep their max."""
+        for key, pool in self.cache.items():
+            part = pcache.get(key)
+            if key in ("len", "cursor", "abs") or part is None or \
+                    pool.ndim == 0:
+                continue
+            ax = next((ax for ax in range(pool.ndim)
+                       if part.shape[ax] == 1 and
+                       pool.shape[ax] == self.slots), None)
+            if ax is None:
+                continue
+            row = pool.select(ax, slot)
+            src = part.select(ax, 0)
+            row.zero_()
+            row[tuple(slice(0, n) for n in src.shape)] = src.to(pool.dtype)
         for key in ("len", "cursor", "abs"):
             self.cache[key] = torch.maximum(self.cache[key], pcache[key])
 
@@ -1107,28 +1122,30 @@ ServingEngine = ChunkedPagedServingEngine
 def make_engine(params: Any, cfg: ArchConfig, *,
                 engine: str = "chunked", disagg: bool = False,
                 **kwargs) -> _EngineBase:
-    """Engine factory.  `engine` selects the scheduler: "chunked"
-    (default — chunked prefill under a token budget), "paged"
-    (whole-prompt prefill over AGAS pages) or "dense" (static
-    slot-pool baseline), for the dense and audio families.
-    ``disagg=True``, tiering, sharded pools, failure plans, the moe
-    family and the families without a paged layout (which the
-    reference serves through the dense engine) raise
-    `NotImplementedError` naming their ROADMAP item.  ``device``
-    (default ``"cuda"``) must be where `params` live."""
+    """Engine factory.  `engine` selects the scheduler for the
+    attention-cache families (dense, audio): "chunked" (default —
+    chunked prefill under a token budget), "paged" (whole-prompt
+    prefill over AGAS pages) or "dense" (static slot-pool baseline).
+    The ssm family, whose recurrent state has no paged layout, always
+    falls back to the dense engine, the page-pool options dropped (the
+    reference's fallback).  ``disagg=True``, tiering, sharded pools and
+    failure plans on the attention families, the moe family and the
+    hybrid and vlm families raise `NotImplementedError` naming their
+    ROADMAP item.  ``device`` (default ``"cuda"``) must be where
+    `params` live."""
     if engine not in ("chunked", "paged", "dense"):
         raise ValueError(f"unknown engine {engine!r}")
     if disagg and engine != "chunked":
         raise ValueError(
             "disaggregated prefill/decode requires the chunked engine")
-    if disagg:
-        raise _not_ported("the disaggregated engine", "Queue A item 9")
-    if cfg.family not in PAGED_FAMILIES:
-        raise _not_ported(f"serving the {cfg.family!r} family",
-                          "Queue A item 13")
     if cfg.family not in T.PORTED_FAMILIES:
-        raise _not_ported(f"serving the {cfg.family!r} family",
-                          "Queue A item 2")
+        item = "Queue A item 3" if cfg.family == "moe" \
+            else "Queue A item 10"
+        raise _not_ported(f"serving the {cfg.family!r} family", item)
+    if cfg.family not in PAGED_FAMILIES:
+        return DenseServingEngine(params, cfg, **_dense_kwargs(kwargs))
+    if disagg:
+        raise _not_ported("the disaggregated engine", "Queue A item 6")
     if engine == "chunked":
         kwargs.pop("prefill_workers", None)
         kwargs.pop("decode_workers", None)
@@ -1144,9 +1161,14 @@ def make_engine(params: Any, cfg: ArchConfig, *,
                      host_pages=kwargs.get("host_pages", 0),
                      kv_shards=kwargs.get("kv_shards", 1),
                      failure_plan=kwargs.get("failure_plan"))
-    for k in ("page_size", "n_pages", "chunk_size", "step_tokens",
-              "kv_shards", "mesh", "rebalance_tolerance", "tiering",
-              "host_pages", "prefix_cache_compute", "pin_threshold",
-              "prefill_workers", "decode_workers", "failure_plan"):
-        kwargs.pop(k, None)
-    return DenseServingEngine(params, cfg, **kwargs)
+    return DenseServingEngine(params, cfg, **_dense_kwargs(kwargs))
+
+
+def _dense_kwargs(kwargs: dict) -> dict:
+    """`kwargs` without the page-pool and worker options, which the
+    dense engine has no use for."""
+    drop = ("page_size", "n_pages", "chunk_size", "step_tokens",
+            "kv_shards", "mesh", "rebalance_tolerance", "tiering",
+            "host_pages", "prefix_cache_compute", "pin_threshold",
+            "prefill_workers", "decode_workers", "failure_plan")
+    return {k: v for k, v in kwargs.items() if k not in drop}

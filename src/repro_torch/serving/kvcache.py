@@ -18,8 +18,8 @@ is an in-place index copy where the reference donates the pool to a
 jitted update.  Activation checkpoints stay on the device as tensors.
 
 Not in this slice: the host tier (`tiering.py`, ROADMAP Queue A item
-7), inter-shard page migration (item 8), and locality loss and the
-prefill->decode handoff snapshots (item 9).
+4), inter-shard page migration (item 5), and locality loss and the
+prefill->decode handoff snapshots (item 6).
 """
 
 from __future__ import annotations

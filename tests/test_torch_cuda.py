@@ -1,6 +1,6 @@
-"""The CUDA attention kernels against their plain PyTorch versions, on
-the card only (marker ``cuda``).  This file imports no JAX, so it runs
-on a GPU machine that has only PyTorch:
+"""The CUDA kernels (attention, selective scan) against their plain
+PyTorch versions, on the card only (marker ``cuda``).  This file
+imports no JAX, so it runs on a GPU machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -9,7 +9,12 @@ pools, window 0 and 6, one or two KV heads; fp32 atol 1e-5, bf16 atol
 2e-2 (the summation orders differ).  Flash kernel: causal and not,
 window 0 and 24, a `q_offset` continuation and lengths that are not a
 multiple of its 64-key tile, 2 or 4 query heads per KV head; fp32 atol
-2e-5 (the reference's flash tolerance), bf16 atol 3e-2.  Each launch
+2e-5 (the reference's flash tolerance), bf16 atol 3e-2.  Selective
+scan: a prompt whose length is not a multiple of the 64-step tile and
+whose channels do not fill the last block, a decode step, state sizes
+4, 8 and 16, a zero and a given initial state, every states-per-thread
+split; y and the final state at fp32 atol/rtol 1e-5 (the reference's
+scan tolerance).  Each launch
 adds exactly one to its wrapper's count.  `chip_smoke.py` makes the
 same comparisons at yi-6b's full width.  Without a card those cases
 skip; the check that the kernel path refuses a CPU tensor runs
@@ -124,3 +129,52 @@ def test_flash_kernel_path_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ops.flash_attention(q, k, k, use_kernel=True)
     assert flash.LAUNCHES["flash_attention_bhsd"] == 0
+
+
+SCAN_SHAPES = [  # (B, S, D, N)
+    (1, 200, 96, 16),
+    (3, 1, 64, 8),
+    (2, 70, 40, 4),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SCAN_SHAPES,
+                         ids=["prefill", "decode", "state4"])
+def test_cuda_scan_kernel_matches_plain(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel is CUDA C++ and "
+                    "has no CPU mode")
+    from repro_torch.kernels.scan import ops, ref, scan
+    b, s, d, n = shape
+    rng = np.random.default_rng(s + d + n)
+
+    def cuda(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).cuda()
+
+    dt = cuda(rng.uniform(0.01, 1.0, size=(b, s, d)))
+    x = cuda(rng.normal(size=(b, s, d)))
+    bm = cuda(rng.normal(size=(b, s, n)) * 0.3)
+    cm = cuda(rng.normal(size=(b, s, n)))
+    a = cuda(-rng.uniform(0.5, 2.0, size=(d, n)))
+    h0 = cuda(rng.normal(size=(b, d, n)))
+    for state in (None, h0):
+        want_y, want_h = ref.selective_scan_fused_ref(dt, x, bm, cm, a,
+                                                      state)
+        scan.reset_launches()
+        y, h_t = scan.selective_scan_fused(dt, x, bm, cm, a, state)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, want_y, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(h_t, want_h, atol=1e-5, rtol=1e-5)
+        assert scan.LAUNCHES == {"selective_scan": 1}
+        # the final state written in place over the initial one
+        out = torch.zeros_like(h0) if state is None else state.clone()
+        y, h_t = scan.selective_scan_fused(
+            dt, x, bm, cm, a, None if state is None else out,
+            out_state=out)
+        assert h_t is out
+        torch.testing.assert_close(y, want_y, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(out, want_h, atol=1e-5, rtol=1e-5)
+        y, h_t = ops.selective_scan(dt, x, bm, cm, a, state)
+        torch.testing.assert_close(y, want_y, atol=1e-5, rtol=1e-5)
+        assert scan.LAUNCHES == {"selective_scan": 3}

@@ -202,22 +202,22 @@ def test_make_engine_raises_for_what_is_not_ported(model):
     _, tcfg, _, tparams = model
     kw = dict(slots=2, max_len=64, device="cpu")
     for engine in ("paged", "dense"):
-        with pytest.raises(NotImplementedError, match="Queue A item 7"):
+        with pytest.raises(NotImplementedError, match="Queue A item 4"):
             make_engine(tparams, tcfg, engine=engine, tiering=True, **kw)
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        with pytest.raises(NotImplementedError, match="Queue A item 5"):
             make_engine(tparams, tcfg, engine=engine, kv_shards=2, **kw)
-        with pytest.raises(NotImplementedError, match="Queue A item 9"):
+        with pytest.raises(NotImplementedError, match="Queue A item 6"):
             make_engine(tparams, tcfg, engine=engine,
                         failure_plan=object(), **kw)
         with pytest.raises(ValueError, match="requires the chunked"):
             make_engine(tparams, tcfg, engine=engine, disagg=True, **kw)
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+    with pytest.raises(NotImplementedError, match="Queue A item 6"):
         make_engine(tparams, tcfg, disagg=True, **kw)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(NotImplementedError, match="Queue A item 4"):
         make_engine(tparams, tcfg, tiering=True, **kw)
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(NotImplementedError, match="Queue A item 5"):
         make_engine(tparams, tcfg, kv_shards=2, **kw)
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+    with pytest.raises(NotImplementedError, match="Queue A item 6"):
         make_engine(tparams, tcfg, failure_plan=object(), **kw)
     with pytest.raises(ValueError, match="unknown engine"):
         make_engine(tparams, tcfg, engine="turbo", **kw)

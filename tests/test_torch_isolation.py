@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: it imports neither JAX nor any module
 of the reference package `repro`, at run time (a subprocess that
 serves a request on the CPU through each of the chunked, whole-prompt
-paged and dense engines ends with neither in `sys.modules`) and in its
-sources (`src/repro_torch/` and `chip_smoke.py`)."""
+paged and dense engines, and one of the ssm family (reduced
+falcon-mamba, through the dense fallback), ends with neither in
+`sys.modules`) and in its sources (`src/repro_torch/` and
+`chip_smoke.py`)."""
 
 import os
 import re
@@ -37,6 +39,15 @@ for engine in ("paged", "dense"):
                              max_new_tokens=3))
     eng.run_to_completion()
     assert len(fut.get().tokens) == 3, engine
+cfg = configs.get_reduced("falcon-mamba-7b")
+params = T.init_params(make_generator(0, "cpu"), cfg)
+eng = make_engine(params, cfg, slots=2, max_len=64, prefill_buckets=(32,),
+                  device="cpu")
+assert type(eng).__name__ == "DenseServingEngine"
+fut = eng.submit(Request(2, np.arange(20, dtype=np.int32),
+                         max_new_tokens=3))
+eng.run_to_completion()
+assert len(fut.get().tokens) == 3, cfg.name
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))

@@ -119,5 +119,5 @@ def test_init_params_layout_and_dtype():
     q = tT.init_params(torch.Generator().manual_seed(0), cfg)
     assert torch.equal(p["layers"]["attn"]["wo"],
                        q["layers"]["attn"]["wo"])
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
+    with pytest.raises(NotImplementedError, match="Queue A item 3"):
         tT.init_params(gen, tconfigs.get_reduced("mixtral-8x7b"))

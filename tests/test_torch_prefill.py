@@ -159,11 +159,11 @@ def test_init_cache_shapes_and_refusals():
         for key in jc:
             assert tuple(tc[key].shape) == jc[key].shape, (name, key)
             assert not tc[key].any()
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         tT.init_cache(tconfigs.get_reduced("mixtral-8x7b"), 1, 8,
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tT.init_cache(tconfigs.get_reduced("falcon-mamba-7b"), 1, 8,
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tT.init_cache(tconfigs.get_reduced("zamba2-7b"), 1, 8,
                       device="cpu")
 
 
