@@ -2,7 +2,8 @@
 each against its plain PyTorch version, times them, and serves
 full-width yi-6b through the chunked, the whole-prompt paged and the
 dense engines, then full-width falcon-mamba-7b (Mamba-1) through the
-dense engine.
+dense engine, then runs the compiled AMR engine at the production
+cell (8,388,608 points).
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -12,8 +13,9 @@ Phases, one JSON line each (any failure exits non-zero before the
 last line):
 
 1. the card: ``nvidia-smi --query-gpu=name,power.limit`` as printed;
-2. build: the paged-attention, flash-attention and selective-scan
-   kernels compiled by nvcc from ``src/repro_torch/kernels/*/csrc/``
+2. build: the paged-attention, flash-attention, selective-scan and
+   RK3-stencil kernels compiled by nvcc from
+   ``src/repro_torch/kernels/*/csrc/``
    into ``build/repro_torch_kernels/``, one nvcc each, started
    together;
 3. kernel against plain version on random inputs.  Paged kernels at
@@ -99,9 +101,36 @@ last line):
    h0 when given, hT, all f32) over 3.35 TB/s and the operations (one
    exp and six flops per (t, d, n), one per (t, d)) over the 67 TFLOP/s
    float32 peak;
-9. the kernels line: route, source, the TPU kernel replaced, launches
-   on its path's counted wave, error, times and bound (steps 5 and 8);
-10. ``{"ok": true, "device": {...}}``.
+9. RK3 stencil (falcon-mamba's weights freed first): the kernel
+   against its plain version (`ref.stencil_rk3_ref`) on random inputs
+   at atol 1e-6 (the reference's stencil tolerance): the reference
+   test's shapes (grain 8/32/128, 1 or 4 blocks, dr 0.05, dt 0.01) and
+   the production cell's (4096 blocks of grain 2048, at widths g + 2H
+   and g + 4H, its dr and dt), p 1/3/7, input scales 0.01 and 0.1;
+   the first block's left side and the last block's right side
+   physical, and random blocks with both sides physical;
+10. the compiled AMR engine at the production cell of
+   `launch/dryrun.py` (WaveProblem(rmax=100, amplitude=0.004),
+   256 localities x 16 slots x grain 2048, 16 steps per `step_fn`
+   call), with one and two steps per halo exchange: through the
+   kernel (one counted call: launch counts zeroed just before it and
+   read just after, the stencil's must be 16 and the others' 0; with
+   one step per exchange its kernel calls recorded), through the plain
+   path and through the global oracle `reference_uniform`, held
+   together at atol 1e-6, energy and max |u| before and after; the
+   step timed with CUDA events beside its halo assembly, and the host
+   clock of one call (cell updates per second);
+11. replay: the recorded kernel calls on their own inputs against the
+   plain version, then timed as the whole sequence (no single PyTorch
+   call computes the step: library time null); bound the larger of
+   the bytes (u_ext, r_ext, flags read once, the output written once)
+   over 3.35 TB/s and 60 float32 operations per point (the count
+   `launch/dryrun.py` uses) over 67 TFLOP/s; the step split into the
+   kernel, the halo assembly and the rest;
+12. the kernels line: route, source, the TPU kernel replaced, launches
+   on its path's counted run, error, times and bound (steps 5, 8 and
+   11);
+13. ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -151,6 +180,15 @@ SCAN = "selective_scan"
 SCAN_D, SCAN_N = 8192, 16          # falcon-mamba-7b's d_inner and state
 SCAN_LENGTHS = (256, 512, 768, 1024, 1280, 1536, 1000)
 SCAN_ATOL = SCAN_RTOL = 1e-5       # the reference's scan tolerance
+STENCIL = "stencil_rk3"
+STENCIL_H = 3                      # the stencil's halo (amr/wave.py H)
+STENCIL_ATOL = 1e-6                # the reference's stencil tolerance
+# the production AMR cell (`launch/dryrun.py` run_amr_cell): 256
+# localities of 16 blocks of 2048 points, 16 steps per call
+AMR_PROB = dict(rmax=100.0, amplitude=0.004)
+AMR_CFG = dict(grain=2048, slots=16, n_steps=16)
+AMR_N_LOC = 256
+AMR_FLOPS_PER_POINT = 60           # per point and step (dryrun.py)
 UNIT_ROUNDOFF = 2.0 ** -24         # float32
 # the whole-prompt engines' prefill buckets: every prompt of the wave
 # (200-1500 tokens) lands on one of them
@@ -627,15 +665,19 @@ def wave_line(eng, cfg, gpu, engine, reqs, comps, wall, **extra):
 def reset_launches():
     from repro_torch.kernels.attention import flash, paged
     from repro_torch.kernels.scan import scan
+    from repro_torch.kernels.stencil import stencil
     paged.reset_launches()
     flash.reset_launches()
     scan.reset_launches()
+    stencil.reset_launches()
 
 
 def read_launches():
     from repro_torch.kernels.attention import flash, paged
     from repro_torch.kernels.scan import scan
-    return {**paged.LAUNCHES, **flash.LAUNCHES, **scan.LAUNCHES}
+    from repro_torch.kernels.stencil import stencil
+    return {**paged.LAUNCHES, **flash.LAUNCHES, **scan.LAUNCHES,
+            **stencil.LAUNCHES}
 
 
 def check_launches(cfg, engine, launches, rec, ran):
@@ -645,8 +687,8 @@ def check_launches(cfg, engine, launches, rec, ran):
         want = cfg.n_layers * len(rec[name]) if name in ran else 0
         if n != want or (name in ran and n < cfg.n_layers):
             fail(f"{engine} wave: {name} launched {n} times, but "
-                 f"{len(rec[name])} recorded calls of {cfg.n_layers} "
-                 f"layers make {want}")
+                 f"{len(rec.get(name, ()))} recorded calls of "
+                 f"{cfg.n_layers} layers make {want}")
 
 
 def logits_check(name, outs, control=None, **line):
@@ -1241,6 +1283,278 @@ def phase_replay_scan(gpu: str, calls):
     return worst, times
 
 
+# -- RK3 stencil (the compiled AMR engine) -----------------------------------
+
+def stencil_inputs(gen, nb, g, h, dr, scale):
+    """Random fields at `scale` on nb blocks of grain g with h halo cells
+    per side; radii formed as the compiled engine forms them (block start
+    as an integer, plus float32 offsets, times dr); flags: the first
+    block's left side and the last block's right side physical, and about
+    one block in eight (block 0 when nb is 1) with both sides physical."""
+    import torch
+    u = torch.randn(nb, 3, g + 2 * h, generator=gen, device="cuda") * scale
+    blk0 = torch.arange(nb, device="cuda") * g
+    r = (blk0[:, None] + torch.arange(-h, g + h, dtype=torch.float32,
+                                      device="cuda")[None, :]) * dr
+    flags = torch.zeros(nb, 2, dtype=torch.int32, device="cuda")
+    flags[0, 0] = 1
+    flags[-1, 1] = 1
+    both = torch.rand(nb, generator=gen, device="cuda") < 0.125
+    both[0] = both[0] | (nb == 1)
+    flags[both] = 1
+    return u, r.contiguous(), flags
+
+
+def stencil_error(u, r, flags, dr, dt, p):
+    """(max abs error, max |plain|) of the kernel against its plain
+    version on one call; the error is inf where the kernel's output is
+    not finite."""
+    import torch
+    from repro_torch.kernels.stencil import ref, stencil
+    got = stencil.stencil_rk3(u, r, flags, dr=dr, dt=dt, p=p)
+    want = ref.stencil_rk3_ref(u, r, flags, dr=dr, dt=dt, p=p)
+    err = (got - want).abs().max().item()
+    if not bool(torch.isfinite(got).all()):
+        err = float("inf")
+    return err, want.abs().max().item()
+
+
+def check_stencil(what, cases, **line):
+    """Hold every (u, r, flags, dr, dt, p, scale) case at STENCIL_ATOL;
+    one line for the group."""
+    worst, errs = 0.0, []
+    for u, r, flags, dr, dt, p, scale in cases:
+        err, plain_max = stencil_error(u, r, flags, dr, dt, p)
+        errs.append({"p": p, "scale": scale, "max_abs_err": err,
+                     "max_abs_plain": plain_max})
+        if not err <= STENCIL_ATOL:
+            fail(f"{STENCIL} disagrees with its plain version ({what}, "
+                 f"nb={u.shape[0]}, W={u.shape[2]}, p={p}, scale={scale}): "
+                 f"max abs err {err} against atol {STENCIL_ATOL}")
+        worst = max(worst, err)
+    emit({"check": STENCIL, "inputs": what, **line, "cases": errs,
+          "max_abs_err": worst, "tol": f"atol {STENCIL_ATOL}", "ok": True})
+    return worst
+
+
+def phase_stencil_kernel():
+    """The stencil kernel on random inputs: the reference test's shapes
+    (grain 8/32/128, nb 1/4, dr 0.05, dt 0.01) and the production cell's
+    (nb 4096, grain 2048, its dr and dt) at width g + 2H (each call of
+    one step per exchange, and the second of two) and g + 4H (the first
+    of two); p 1/3/7, input scales 0.01 and 0.1."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    worst = 0.0
+    for g in (8, 32, 128):
+        for nb in (1, 4):
+            cases = [(*stencil_inputs(gen, nb, g, STENCIL_H, 0.05, scale),
+                      0.05, 0.01, p, scale)
+                     for p in (1, 3, 7) for scale in (0.01, 0.1)]
+            worst = max(worst, check_stencil("random", cases, nb=nb,
+                                             width=g + 2 * STENCIL_H))
+    nb = AMR_N_LOC * AMR_CFG["slots"]
+    g = AMR_CFG["grain"]
+    dr, dt = amr_dr_dt()
+    for h in (STENCIL_H, 2 * STENCIL_H):
+        for p in (1, 3, 7):
+            cases = [(*stencil_inputs(gen, nb, g, h, dr, scale), dr, dt, p,
+                      scale) for scale in (0.01, 0.1)]
+            worst = max(worst, check_stencil(
+                "random, production shape", cases, nb=nb, width=g + 2 * h,
+                dr=dr, dt=dt))
+            del cases
+    return worst
+
+
+def amr_dr_dt():
+    """dr and dt of the production cell, as `make_uniform_step` forms
+    them."""
+    from repro_torch.amr import wave
+    prob = wave.WaveProblem(**AMR_PROB)
+    n_pts = AMR_N_LOC * AMR_CFG["slots"] * AMR_CFG["grain"]
+    dr = prob.rmax / (n_pts - 1)
+    return dr, prob.cfl * dr
+
+
+def record_stencil_calls():
+    """Keep a copy of the inputs of every stencil kernel call the models
+    make (`stencil.stencil_rk3` is what `ops.stencil_rk3_step` calls).
+    Returns (list, undo)."""
+    from repro_torch.kernels.stencil import stencil
+    calls = []
+    orig = stencil.stencil_rk3
+
+    def rec(u_ext, r_ext, flags, **kw):
+        calls.append((u_ext.clone(), r_ext.clone(), flags.clone(), kw))
+        return orig(u_ext, r_ext, flags, **kw)
+    stencil.stencil_rk3 = rec
+
+    def undo():
+        stencil.stencil_rk3 = orig
+    return calls, undo
+
+
+def amr_diagnostics(u, dr):
+    import torch
+    from repro_torch.amr import wave
+    r = torch.arange(u.shape[1], dtype=u.dtype, device=u.device) * dr
+    return {"energy": wave.energy(u, r, dr).item(),
+            "linf": wave.linf(u).item()}
+
+
+def phase_amr(gpu: str):
+    """The compiled AMR engine at the production cell (256 localities x
+    16 slots x grain 2048 = 8,388,608 points, 16 steps) with one and two
+    steps per exchange: through the kernel (the counted call: launches
+    zeroed just before it and read just after; with one step per
+    exchange its 16 kernel calls recorded), through the plain path and
+    through the global oracle `reference_uniform`, all three held
+    together at STENCIL_ATOL; then the step timed with CUDA events,
+    split into the halo assembly and the rest."""
+    import torch
+    from repro_torch.amr import compiled, wave
+    gc.collect()                   # falcon-mamba's engines and weights
+    torch.cuda.empty_cache()
+    prob = wave.WaveProblem(**AMR_PROB)
+    recorded = launches = step_line = None
+    for k in (1, 2):
+        outs = {}
+        for mode in ("kernel", "plain"):
+            cfg = compiled.CompiledAMRConfig(**AMR_CFG, steps_per_exchange=k,
+                                             use_kernel=mode == "kernel")
+            step, mk, init, to_g, dev, info = compiled.make_uniform_step(
+                prob, cfg, AMR_N_LOC, device="cuda")
+            pool = init()
+            if mode == "kernel":
+                before = amr_diagnostics(to_g(pool), info["dr"])
+                torch.cuda.reset_peak_memory_stats()
+                calls, undo = record_stencil_calls() if k == 1 else \
+                    ([], lambda: None)
+                try:
+                    reset_launches()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = step(pool)
+                    torch.cuda.synchronize()
+                    first_s = time.perf_counter() - t0
+                    counts = read_launches()
+                finally:
+                    undo()
+                peak = torch.cuda.max_memory_allocated() / 1e9
+                want = {name: 0 for name in counts}
+                want[STENCIL] = cfg.n_steps
+                if counts != want:
+                    fail(f"AMR step (K={k}): launches {counts}, not {want}")
+                timing = time_amr_step(step, pool, k, info)
+                if k == 1:
+                    recorded, launches = calls, counts[STENCIL]
+                    step_line = timing
+            else:
+                out = step(pool)
+            outs[mode] = to_g(out)
+            del out
+        outs["reference"] = compiled.reference_uniform(
+            prob, info["n_points"], cfg.n_steps, info["dr"], info["dt"],
+            device="cuda")
+        diffs = {f"{a}_vs_{b}": (outs[a] - outs[b]).abs().max().item()
+                 for a, b in (("kernel", "plain"), ("kernel", "reference"),
+                              ("plain", "reference"))}
+        finite = all(bool(torch.isfinite(v).all()) for v in outs.values())
+        ok = finite and max(diffs.values()) <= STENCIL_ATOL and \
+            tuple(outs["kernel"].shape) == (3, info["n_points"])
+        emit({"amr": "compiled uniform", "gpu": gpu, **AMR_PROB, **AMR_CFG,
+              "steps_per_exchange": k, "n_loc": AMR_N_LOC,
+              "n_points": info["n_points"], "dr": info["dr"],
+              "dt": info["dt"], "launches": counts, "before": before,
+              "after": amr_diagnostics(outs["kernel"], info["dr"]),
+              "max_abs_diff": diffs, "tol": f"atol {STENCIL_ATOL}",
+              "finite": finite, "first_call_s": first_s,
+              "peak_memory_gb": peak, **timing, "ok": ok})
+        if not ok:
+            fail(f"AMR step (K={k}): kernel, plain and reference differ by "
+                 f"{diffs} (atol {STENCIL_ATOL}), finite {finite}")
+        del outs, pool
+    return launches, recorded, step_line
+
+
+def time_amr_step(step, pool, k, info):
+    """Per step: the whole `step_fn` (CUDA events over calls of n_steps
+    steps), the halo assembly of one exchange (per step: over K), and
+    the host wall clock of one call; cell updates per second from each."""
+    import torch
+    from repro_torch.amr import compiled
+    n_steps = AMR_CFG["n_steps"]
+    step_ms = time_ms([lambda: step(pool)], 3) / n_steps
+    assemble_ms = time_ms([lambda: compiled.assemble_halos(
+        pool, STENCIL_H * k)], 20) / k
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(pool)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = min(walls)
+    return {"step_ms": step_ms, "assemble_ms_per_step": assemble_ms,
+            "wall_s": wall,
+            "cell_updates_per_s": info["n_points"] * n_steps / wall,
+            "cell_updates_per_s_device": info["n_points"] / step_ms * 1e3}
+
+
+def stencil_bound(u, g):
+    """(bytes_ms, ops_ms) of one stencil call: u_ext, r_ext and the int32
+    flags read once, the (nb, 3, g) output written once; about
+    AMR_FLOPS_PER_POINT float32 operations per output point and step
+    (the count `launch/dryrun.py` uses for the compiled AMR cell)."""
+    nb, _, w = u.shape
+    nbytes = 4 * (nb * 3 * w + nb * w + 2 * nb + nb * 3 * g)
+    ops = AMR_FLOPS_PER_POINT * nb * g
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS_PER_S * 1e3
+
+
+def phase_replay_stencil(gpu: str, calls, step_line):
+    """The recorded kernel calls of the K = 1 production step (16, on
+    their own inputs) against the plain version, then timed as the whole
+    sequence (no single PyTorch call computes the step: library time
+    null); the kernel's share of the measured step."""
+    from repro_torch.kernels.stencil import ref, stencil
+    worst = plain_max_all = 0.0
+    for u, r, flags, kw in calls:
+        err, plain_max = stencil_error(u, r, flags, kw["dr"], kw["dt"],
+                                       kw["p"])
+        plain_max_all = max(plain_max_all, plain_max)
+        if not err <= STENCIL_ATOL:
+            fail(f"{STENCIL} disagrees with its plain version on a "
+                 f"main-path call: max abs err {err}")
+        worst = max(worst, err)
+    u0 = calls[0][0]
+    emit({"check": STENCIL, "inputs": "main path", "dtype": "float32",
+          "calls": len(calls), "nb": u0.shape[0], "width": u0.shape[2],
+          "max_abs_err": worst, "max_abs_plain": plain_max_all,
+          "tol": f"atol {STENCIL_ATOL}", "ok": True})
+
+    def kern(c):
+        return lambda: stencil.stencil_rk3(c[0], c[1], c[2], **c[3])
+
+    def plain(c):
+        return lambda: ref.stencil_rk3_ref(c[0], c[1], c[2], **c[3])
+    g = u0.shape[2] - 2 * STENCIL_H
+    times = time_sequence(STENCIL, [kern(c) for c in calls],
+                          [plain(c) for c in calls], None,
+                          [stencil_bound(c[0], g) for c in calls], gpu,
+                          dtype="float32", inputs="main path",
+                          nb=u0.shape[0], width=u0.shape[2])
+    emit({"timing": "amr step split", "gpu": gpu, "steps_per_exchange": 1,
+          "step_ms": step_line["step_ms"], "kernel_ms": times["ms"],
+          "assemble_ms": step_line["assemble_ms_per_step"],
+          "rest_ms": step_line["step_ms"] - times["ms"] -
+          step_line["assemble_ms_per_step"],
+          "kernel_share": times["ms"] / step_line["step_ms"],
+          "kernel_over_bound": times["ms"] / times["bound_ms"]})
+    return worst, times
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1264,6 +1578,7 @@ def main() -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels.attention import flash, paged
     from repro_torch.kernels.scan import scan
+    from repro_torch.kernels.stencil import stencil
 
     # the fp32 plain versions must not drop to TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1274,7 +1589,8 @@ def main() -> None:
     emit({"gpu": gpu})
 
     t0 = time.perf_counter()
-    libs = build.build_all([paged.SOURCE, flash.SOURCE, scan.SOURCE])
+    libs = build.build_all([paged.SOURCE, flash.SOURCE, scan.SOURCE,
+                            stencil.SOURCE])
     emit({"build": [str(p.relative_to(ROOT)) for p in libs],
           "build_s": time.perf_counter() - t0})
 
@@ -1291,24 +1607,34 @@ def main() -> None:
     worst[SCAN] = max(worst[SCAN], worst_serve)
     worst_main[SCAN], times[SCAN] = phase_replay_scan(gpu, scan_calls)
 
+    # the compiled AMR engine (falcon-mamba's weights freed first)
+    worst[STENCIL] = phase_stencil_kernel()
+    stencil_launches, stencil_calls, step_line = phase_amr(gpu)
+    worst_main[STENCIL], times[STENCIL] = phase_replay_stencil(
+        gpu, stencil_calls, step_line)
+
     # each kernel's launches come from its own path's counted wave: the
     # paged kernels from the chunked engine's, flash from the
-    # whole-prompt paged engine's, the scan from falcon-mamba's
+    # whole-prompt paged engine's, the scan from falcon-mamba's, the
+    # stencil from the AMR step's (one step per exchange)
     launches = {DECODE: counted["chunked"][DECODE],
                 PREFILL: counted["chunked"][PREFILL],
-                FLASH: counted["paged"][FLASH], SCAN: scan_launches}
+                FLASH: counted["paged"][FLASH], SCAN: scan_launches,
+                STENCIL: stencil_launches}
     sources = {DECODE: paged.SOURCE, PREFILL: paged.SOURCE,
-               FLASH: flash.SOURCE, SCAN: scan.SOURCE}
+               FLASH: flash.SOURCE, SCAN: scan.SOURCE,
+               STENCIL: stencil.SOURCE}
     replaces = {DECODE: "src/repro/kernels/attention/paged.py:96",
                 PREFILL: "src/repro/kernels/attention/paged.py:207",
                 FLASH: "src/repro/kernels/attention/flash.py:88",
-                SCAN: "src/repro/kernels/scan/selective_scan.py:51"}
+                SCAN: "src/repro/kernels/scan/selective_scan.py:51",
+                STENCIL: "src/repro/kernels/stencil/stencil.py:83"}
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": str(sources[name].relative_to(ROOT)),
          "replaces": replaces[name], "launches": launches[name],
          "max_abs_err": max(worst[name], worst_main[name]), **times[name]}
-        for name in (DECODE, PREFILL, FLASH, SCAN)]})
+        for name in (DECODE, PREFILL, FLASH, SCAN, STENCIL)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,5 +1,5 @@
-"""The CUDA kernels (attention, selective scan) against their plain
-PyTorch versions, on the card only (marker ``cuda``).  This file
+"""The CUDA kernels (attention, selective scan, RK3 stencil) against
+their plain PyTorch versions, on the card only (marker ``cuda``).  This file
 imports no JAX, so it runs on a GPU machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -14,9 +14,15 @@ scan: a prompt whose length is not a multiple of the 64-step tile and
 whose channels do not fill the last block, a decode step, state sizes
 4, 8 and 16, a zero and a given initial state, every states-per-thread
 split; y and the final state at fp32 atol/rtol 1e-5 (the reference's
-scan tolerance).  Each launch
+scan tolerance).  RK3 stencil: grains inside one 1024-column tile and
+across tiles, 1 and 4 blocks, every pattern of physical sides, p 1, 3
+and 7, at the reference test's dr and at the compiled engine's
+production dr, input scales 0.01 and 0.1; and the compiled AMR step
+through the kernel against its plain path and the global oracle; fp32
+atol 1e-6 (the reference's stencil tolerance).  Each launch
 adds exactly one to its wrapper's count.  `chip_smoke.py` makes the
-same comparisons at yi-6b's full width.  Without a card those cases
+same comparisons at the served models' full width and the AMR
+production cell.  Without a card those cases
 skip; the check that the kernel path refuses a CPU tensor runs
 anywhere.
 """
@@ -178,3 +184,83 @@ def test_cuda_scan_kernel_matches_plain(shape):
         y, h_t = ops.selective_scan(dt, x, bm, cm, a, state)
         torch.testing.assert_close(y, want_y, atol=1e-5, rtol=1e-5)
         assert scan.LAUNCHES == {"selective_scan": 3}
+
+
+STENCIL_GRAINS = [8, 1000, 2100]   # inside one 1024-column tile and across
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grain", STENCIL_GRAINS)
+@pytest.mark.parametrize("nb", [1, 4])
+def test_cuda_stencil_kernel_matches_plain(grain, nb):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel is CUDA C++ and "
+                    "has no CPU mode")
+    from repro_torch.kernels.stencil import ops, ref, stencil
+    rng = np.random.default_rng(grain + nb)
+    patterns = [[0, 0], [1, 0], [0, 1], [1, 1]]
+    # a batch of 4 takes every pattern at once, a batch of 1 each in turn
+    flag_sets = [patterns] if nb == 4 else [[f] for f in patterns]
+    # the reference test's dr/dt, and a fine grid's (the compiled
+    # engine's production cell: 8,388,608 points over r in [0, 100])
+    for dr in (0.05, 100.0 / (8388608 - 1)):
+        for scale in (0.01, 0.1):
+            u = torch.from_numpy((rng.normal(size=(nb, 3, grain + 6)) *
+                                  scale).astype(np.float32)).cuda()
+            r = torch.from_numpy(np.stack(
+                [(np.arange(-3, grain + 3) + b * grain) * dr
+                 for b in range(nb)]).astype(np.float32)).cuda()
+            for flags in flag_sets:
+                f = torch.tensor(flags, dtype=torch.int32).cuda()
+                for p in (1, 3, 7):
+                    kw = dict(dr=dr, dt=0.25 * dr, p=p)
+                    want = ref.stencil_rk3_ref(u, r, f, **kw)
+                    stencil.reset_launches()
+                    got = stencil.stencil_rk3(u, r, f, **kw)
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+                    assert stencil.LAUNCHES == {"stencil_rk3": 1}
+                    left = f[:, 0].bool()[:, None, None]
+                    right = f[:, 1].bool()[:, None, None]
+                    got = ops.stencil_rk3_step(u, r, left, right, **kw)
+                    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+                    assert stencil.LAUNCHES == {"stencil_rk3": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2])
+def test_cuda_compiled_amr_step_matches_plain(k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel is CUDA C++ and "
+                    "has no CPU mode")
+    from repro_torch.amr import compiled, wave
+    from repro_torch.kernels.stencil import stencil
+    prob = wave.WaveProblem(rmax=20.0, amplitude=0.005)
+    out = {}
+    for use_kernel in (True, False):
+        cfg = compiled.CompiledAMRConfig(grain=1100, slots=4, n_steps=6,
+                                         steps_per_exchange=k,
+                                         use_kernel=use_kernel)
+        step, _, init, to_g, _, info = compiled.make_uniform_step(
+            prob, cfg, 3, device="cuda")
+        pool = init()
+        stencil.reset_launches()
+        out[use_kernel] = to_g(step(pool))
+        torch.cuda.synchronize()
+        assert stencil.LAUNCHES["stencil_rk3"] == (6 if use_kernel else 0)
+    torch.testing.assert_close(out[True], out[False], atol=1e-6, rtol=0)
+    want = compiled.reference_uniform(prob, info["n_points"], 6, info["dr"],
+                                      info["dt"], device="cuda")
+    torch.testing.assert_close(out[True], want, atol=1e-6, rtol=0)
+
+
+def test_stencil_kernel_path_refuses_cpu_tensors():
+    from repro_torch.kernels.stencil import ops, stencil
+    u = torch.zeros(1, 3, 14)
+    r = torch.zeros(1, 14)
+    mask = torch.ones((1, 1, 1), dtype=torch.bool)
+    stencil.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.stencil_rk3_step(u, r, mask, mask, dr=0.05, dt=0.01, p=7,
+                             use_kernel=True)
+    assert stencil.LAUNCHES["stencil_rk3"] == 0

@@ -2,9 +2,10 @@
 of the reference package `repro`, at run time (a subprocess that
 serves a request on the CPU through each of the chunked, whole-prompt
 paged and dense engines, and one of the ssm family (reduced
-falcon-mamba, through the dense fallback), ends with neither in
-`sys.modules`) and in its sources (`src/repro_torch/` and
-`chip_smoke.py`)."""
+falcon-mamba, through the dense fallback), then runs two steps of the
+compiled AMR engine, ends with neither in `sys.modules`) and in its
+sources (`src/repro_torch/`, the AMR and stencil modules among them,
+and `chip_smoke.py`)."""
 
 import os
 import re
@@ -48,6 +49,12 @@ fut = eng.submit(Request(2, np.arange(20, dtype=np.int32),
                          max_new_tokens=3))
 eng.run_to_completion()
 assert len(fut.get().tokens) == 3, cfg.name
+from repro_torch.amr import compiled, wave
+step, _, init, to_g, _, info = compiled.make_uniform_step(
+    wave.WaveProblem(rmax=20.0, amplitude=0.005),
+    compiled.CompiledAMRConfig(grain=32, slots=4, n_steps=2), 2,
+    device="cpu")
+assert bool(wave.linf(to_g(step(init()))) > 0)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))
@@ -72,6 +79,9 @@ def test_sources_import_neither_jax_nor_the_reference():
     files = sorted((SRC / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    rel = {str(f.relative_to(SRC / "repro_torch")) for f in files[:-1]}
+    assert {"amr/wave.py", "amr/compiled.py", "kernels/stencil/ref.py",
+            "kernels/stencil/stencil.py", "kernels/stencil/ops.py"} <= rel
     for f in files:
         text = f.read_text()
         hits = FORBIDDEN.findall(text)
