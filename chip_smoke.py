@@ -17,7 +17,10 @@ last line):
    RK3-stencil kernels compiled by nvcc from
    ``src/repro_torch/kernels/*/csrc/``
    into ``build/repro_torch_kernels/``, one nvcc each, started
-   together;
+   together; then the ``-Xptxas -v`` lines (registers, stack, spills)
+   of every instantiation of the tensor-core attention core that the
+   two attention sources share (`attention_core.cuh`), with its
+   dynamic shared memory;
 3. kernel against plain version on random inputs.  Paged kernels at
    the serve configuration's shapes: yi-6b's attention (H 32, KV 4,
    D 128), page 16, block tables of max_len / page = 128 pages, decode
@@ -29,7 +32,11 @@ last line):
    whole-prompt engines' buckets (256-1536) and S 1000 (not a multiple
    of 128), each as the whole sequence and as its second half
    continuing the first (``q_offset`` S/2); fp32 and bf16, causal and
-   not, window 0 and S/3.  Tolerances: fp32 atol 1e-5 (paged; the
+   not, window 0 and S/3.  The same checks, fewer shapes, at the
+   other served head layouts: h2o-danube-3-4b's (H 32, KV 8, D 120,
+   window 512) and musicgen-large's (H 32, KV 32, D 64): decode and
+   the B 1 x T 256 prefill, and flash at S 1000 and at 768 queries
+   continuing at 768.  Tolerances: fp32 atol 1e-5 (paged; the
    reference's `test_serving_paged.py` tolerance) and 2e-5 (flash;
    `test_kernels.py`'s); bf16, per element, 2^-7 * (sum_j p_j |v_j| +
    |o|): one bf16 ulp of each softmax weight times its value plus one
@@ -63,7 +70,10 @@ last line):
    whole recorded sequence: kernel, plain version, one PyTorch call
    computing the same function (`scaled_dot_product_attention`, on
    pre-gathered K/V for the paged kernels; a yardstick the port never
-   calls) and the bound, each per launch.  The bound of a call is the
+   calls) and the bound, each per launch; the kernel and SDPA sequences
+   also as CUDA graphs (``kernel_graph_ms``, ``library_graph_ms``: the
+   device's time without the host's launch overhead, which the short
+   calls are bound by).  The bound of a call is the
    larger of the bytes it must move over 3.35 TB/s (paged: each
    distinct live K/V page once, q and o once; flash: q, k, v and o
    once) and its flops (4 * head_dim per visible query, head and key:
@@ -137,6 +147,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -199,6 +210,15 @@ BUCKETS = (256, 512, 768, 1024, 1280, 1536)
 FLASH_LENGTHS = BUCKETS + (1000,)
 FLASH_SHAPES = [shape for s in FLASH_LENGTHS
                 for shape in ((s, s, 0), (s - s // 2, s, s // 2))]
+# the other served head layouts, checked on random inputs beside
+# yi-6b's: h2o-danube-3-4b (32/8 heads of 120, a 512-token window) and
+# musicgen-large (32/32 heads of 64), as (name, (H, KV, D), window)
+OTHER_HEADS = (("h2o-danube-3-4b", (32, 8, 120), 512),
+               ("musicgen-large", (32, 32, 64), 0))
+OTHER_FLASH_SHAPES = ((1000, 1000, 0), (768, 1536, 768))
+# the attention kernels rebuilt on the tensor cores: their ptxas lines
+# are printed after the build
+TC_KERNEL = "tc_kernel"
 
 
 def emit(obj) -> None:
@@ -216,6 +236,39 @@ def gpu_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(log: str, match: str):
+    """The ``-Xptxas -v`` lines (registers, shared memory, stack and
+    spills) of every entry function of a build log whose mangled name
+    contains `match`, as {"function": name, "report": [lines]}."""
+    out = []
+    keep = False
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            keep = match in m.group(1)
+            if keep:
+                out.append({"function": m.group(1), "report": []})
+        elif keep and re.search(r"spill|Used \d+ registers", line):
+            out[-1]["report"].append(line.split(":", 1)[-1].strip())
+    return out
+
+
+def tc_shape(function: str):
+    """The template arguments of a tensor-core attention instantiation
+    (`attention_core.cuh`: KD = padded head dim / 16, MR row groups, NG
+    key groups) read from its mangled name, and the dynamic shared
+    memory that the header's `smem_bytes` gives it: 64 MR + 2 NS NG KN
+    rows of 16 KD bf16, NS = 2 stages, KN the keys per warp-group tile
+    (`tile_keys`: 32 above KD 8, else 64 at NG 2 and 128 at NG 1)."""
+    m = re.search(r"(FlashTC|PrefillTC)ELi(\d+)ELi(\d+)ELi(\d+)E", function)
+    if not m:
+        return {}
+    kd, mr, ng = (int(x) for x in m.groups()[1:])
+    kn = 32 if kd > 8 else (64 if ng == 2 else 128)
+    return {"kernel": m.group(1), "kd": kd, "mr": mr, "ng": ng,
+            "dynamic_smem_bytes": 2 * (64 * mr + 4 * ng * kn) * 16 * kd}
 
 
 def time_ms(fns, iters: int) -> float:
@@ -239,13 +292,14 @@ def time_ms(fns, iters: int) -> float:
 
 # -- inputs and bounds ---------------------------------------------------
 
-def make_inputs(gen, b, t, dtype, sharded, decode):
+def make_inputs(gen, b, t, dtype, sharded, decode, heads=(H, KV, D)):
     """Random pool whose last row is the null row; block tables of
     width P over random rows up to each slot's last live page and the
     null row past it.  Decode: clocks in [0, MAX_LEN), the IDLE slots
     on the null row at position 0.  Prefill: page-aligned starts in
-    [0, MAX_LEN - t]."""
+    [0, MAX_LEN - t].  `heads` is (H, KV, D)."""
     import torch
+    H, KV, D = heads
     n = b * P + 2
     null = n - 1
     kp = torch.randn(n, PS, KV, D, generator=gen, device="cuda").to(dtype)
@@ -367,19 +421,56 @@ def compare(name, q, kp, vp, tables, clocks, window=0):
     return error_ratio(kern(), plain(), plain_abs, FP32_ATOL)
 
 
+def graph_ms(fns, iters: int) -> float:
+    """Mean ms per call of the list `fns` captured once in a CUDA graph
+    and replayed `iters` times (after a warm-up pass on a side stream
+    and one replay): the device's time for the sequence without the
+    host's launch overhead."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * len(fns))
+    del graph
+    return ms
+
+
 def time_sequence(name, kern, plain, lib, bounds, gpu, dtype="bfloat16",
-                  **line):
+                  graph=False, **line):
     """Time lists of thunks — kernel, plain version, library call (None
     where no PyTorch call computes the function) — and average the
     bounds ((bytes_ms, ops_ms) per call), each per launch.  Kernel and
     plain run plain, kernel, kernel, plain, the lower of each pair
-    kept."""
+    kept.  With `graph`, the kernel and library sequences are also
+    timed as CUDA graphs (`graph_ms`, an extra line field): calls short
+    enough to be bound by the host's launch rate show their device time
+    there."""
     iters = max(2, 40 // len(kern))
     p1 = time_ms(plain, iters)
     k1 = time_ms(kern, iters)
     k2 = time_ms(kern, iters)
     p2 = time_ms(plain, iters)
     lib_ms = None if lib is None else time_ms(lib, iters)
+    if graph:
+        line.update(kernel_graph_ms=graph_ms(kern, iters),
+                    library_graph_ms=None if lib is None
+                    else graph_ms(lib, iters))
     tb = sum(b for b, _ in bounds)
     to = sum(o for _, o in bounds)
     tmax = sum(max(b, o) for b, o in bounds)
@@ -403,13 +494,15 @@ def time_calls(name, calls, gpu, **line):
     bounds = [bound_times(q, tables, clocks, 0, decode)
               for q, _, _, tables, clocks in calls]
     return time_sequence(name, [k for k, _ in thunks],
-                         [p for _, p in thunks], lib, bounds, gpu, **line)
+                         [p for _, p in thunks], lib, bounds, gpu,
+                         graph=True, **line)
 
 
 # -- flash attention -------------------------------------------------------
 
-def flash_inputs(gen, b, sq, sk, dtype):
+def flash_inputs(gen, b, sq, sk, dtype, heads=(H, KV, D)):
     import torch
+    H, KV, D = heads
     return (torch.randn(b, sq, H, D, generator=gen, device="cuda").to(dtype),
             torch.randn(b, sk, KV, D, generator=gen, device="cuda").to(dtype),
             torch.randn(b, sk, KV, D, generator=gen, device="cuda").to(dtype))
@@ -464,7 +557,7 @@ def time_flash(calls, gpu, **line):
                          [p for _, p in thunks],
                          [flash_sdpa(*c) for c in calls],
                          [flash_bound(q, k) for q, k, _ in calls], gpu,
-                         **line)
+                         graph=True, **line)
 
 
 # -- phases ----------------------------------------------------------------
@@ -499,6 +592,28 @@ def phase_kernels(gpu: str):
                              f"{ratio} times its tolerance")
                     if dtype == torch.bfloat16:
                         worst[name] = max(worst[name], err)
+    # the other served head layouts, flat pools, at their windows
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for model, heads, window in OTHER_HEADS:
+            for name, b, t in shapes[:2]:
+                q, kp, vp, tables, clocks = make_inputs(
+                    gen, b, t, dtype, False, name == DECODE, heads)
+                err, ratio = compare(name, q, kp, vp, tables, clocks,
+                                     window)
+                emit({"check": name, "inputs": "random", "heads": model,
+                      "h_kv_d": list(heads), "dtype": dname,
+                      "window": window, "batch": b, "tokens": t,
+                      "clocks": clocks.tolist(), "max_abs_err": err,
+                      "err_over_tol": ratio, "tol": TOL[dname],
+                      "ok": ratio <= 1.0})
+                if ratio > 1.0:
+                    fail(f"{name} disagrees with its plain version at "
+                         f"{model}'s heads ({dtype}, window={window}, "
+                         f"B={b}): max abs err {err}, {ratio} times its "
+                         f"tolerance")
+                if dtype == torch.bfloat16:
+                    worst[name] = max(worst[name], err)
     for name, b, t in ((DECODE, SLOTS, 1), (PREFILL, 8, CHUNK)):
         call = make_inputs(gen, b, t, torch.bfloat16, False, name == DECODE)
         time_calls(name, [call], gpu, inputs="random", batch=b, tokens=t,
@@ -510,8 +625,9 @@ def phase_flash_kernel(gpu: str):
     """The flash kernel on random inputs at yi-6b's heads, B 1: every
     (Sq, Sk, q_offset) of FLASH_SHAPES, fp32 and bf16, causal and not,
     window 0 and a window of a third of Sk (shorter than the sequence,
-    not a multiple of the key tile); the longest bucket's causal call
-    timed as an extra line."""
+    not a multiple of the key tile); at the OTHER_HEADS layouts, every
+    shape of OTHER_FLASH_SHAPES, causal and not, at their windows; the
+    longest bucket's causal call timed as an extra line."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst = 0.0
@@ -534,6 +650,27 @@ def phase_flash_kernel(gpu: str):
                         fail(f"{FLASH} disagrees with its plain version "
                              f"({dtype}, B={b}, Sq={sq}, Sk={sk}, "
                              f"q_offset={off}, causal={causal}, "
+                             f"window={window}): max abs err {err}, "
+                             f"{ratio} times its tolerance")
+                    if dtype == torch.bfloat16:
+                        worst = max(worst, err)
+        for model, heads, window in OTHER_HEADS:
+            for sq, sk, off in OTHER_FLASH_SHAPES:
+                for causal in (True, False):
+                    q, k, v = flash_inputs(gen, b, sq, sk, dtype, heads)
+                    err, ratio = compare_flash(q, k, v, causal=causal,
+                                               window=window, q_offset=off)
+                    emit({"check": FLASH, "inputs": "random",
+                          "heads": model, "h_kv_d": list(heads),
+                          "dtype": dname, "batch": b, "sq": sq, "sk": sk,
+                          "q_offset": off, "causal": causal,
+                          "window": window, "max_abs_err": err,
+                          "err_over_tol": ratio, "tol": FLASH_TOL[dname],
+                          "ok": ratio <= 1.0})
+                    if ratio > 1.0:
+                        fail(f"{FLASH} disagrees with its plain version "
+                             f"at {model}'s heads ({dtype}, Sq={sq}, "
+                             f"Sk={sk}, q_offset={off}, causal={causal}, "
                              f"window={window}): max abs err {err}, "
                              f"{ratio} times its tolerance")
                     if dtype == torch.bfloat16:
@@ -1593,6 +1730,13 @@ def main() -> None:
                             stencil.SOURCE])
     emit({"build": [str(p.relative_to(ROOT)) for p in libs],
           "build_s": time.perf_counter() - t0})
+    # registers, stack and spills of the tensor-core attention kernels
+    # (every instantiation), from the build's -Xptxas -v log
+    for lib in libs[:2]:
+        for entry in ptxas_report(lib.with_suffix(".log").read_text(),
+                                  TC_KERNEL):
+            emit({"ptxas": lib.name, **tc_shape(entry["function"]),
+                  **entry})
 
     worst = phase_kernels(gpu)
     worst[FLASH] = phase_flash_kernel(gpu)

@@ -22,22 +22,39 @@
 // heads), so each K/V tile is read from device memory once per query
 // group instead of once per query head as in the Pallas grid
 // (BH, nq, nk).  The block computes the key range its queries can see
-// (causality with q_offset, and the window) and walks only that range,
-// 64 keys per tile: tiles with no live element are never read, which is
-// the Pallas kernel's pruning (flash.py:44-50) at key granularity.
-// Query and key tails are masked, so any Sq and Sk work (the Pallas
-// wrapper drops a tail that is not a multiple of its tile).  A 16 x 16
-// thread grid holds a 4 x 4 block of scores and a 4 x ceil(D/16)
-// block of the accumulator per thread in registers; q, the K/V tile
-// and the rounded weights sit in shared memory as f32.  Causal blocks
-// are launched heaviest first.
+// (causality with q_offset, and the window) and walks only that range:
+// tiles with no live element are never read, which is the Pallas
+// kernel's pruning (flash.py:44-50) at key granularity.  Query and key
+// tails are masked, so any Sq and Sk work (the Pallas wrapper drops a
+// tail that is not a multiple of its tile).  Causal blocks are launched
+// heaviest first.
 //
-// What bounds it on the H100.  Prefill attention over S keys does about
-// S/2 flops per K/V byte, far above the card's ~295 flops/byte ridge:
-// bound by operations.  This first version computes with f32 FMAs from
-// shared memory (no tensor cores, no TMA), so it runs far below the
-// tensor-core bound; moving both products onto wgmma is the next step.
-//
+// What bounds it on the H100, and the two instantiations.  Prefill
+// attention over S keys does about S/2 flops per K/V byte, far above
+// the card's ~295 flops/byte ridge: bound by operations, on the tensor
+// cores.
+//   * bf16 runs the tensor-core core of attention_core.cuh (shared with
+//     the chunked-prefill kernel, through a contiguous K/V loader): both
+//     products as warp-group wgmma, P kept in registers, K/V staged in
+//     bf16 by cp.async in a two-stage ring.  At yi-6b's buckets (32/4
+//     heads of 128, B 1) launch_kd gives the 256-token bucket 128
+//     blocks whose two warp groups split the keys of 64 rows, and 512
+//     tokens and up 128-384 blocks of two warp groups on 128 rows.
+//     What holds it below the tensor-core bound: each warp group runs
+//     its two products and the softmax between them (one exp per score
+//     on the special-function unit) one after another, with a
+//     block-wide barrier per stage of keys, so only the block's other
+//     warp group can keep the tensor cores busy meanwhile.
+//   * fp32 stays on the CUDA cores (TF32 cannot hold the reference's
+//     2e-5): a 16 x 16 thread grid holds a 4 x 4 block of scores and a
+//     4 x ceil(D/16) block of the accumulator per thread in registers;
+//     q, the K/V tile and the weights sit in shared memory as f32.
+// The build log (-Xptxas -v) gives registers, stack and spills for
+// every instantiation, and chip_smoke.py prints them.  bf16 at D 128
+// (CUDA 12.8): 207 registers and 163,840 bytes of dynamic shared
+// memory on 128 rows, 152 and 147,456 with the keys split; no
+// instantiation spills or keeps a stack frame.
+
 // Layout.  Any (batch, sequence, head) element strides with a
 // contiguous head dimension: the wrapper reads the reference's
 // (B, S, H, D) activations in place, and the Pallas entry's
@@ -52,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "attention_core.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1.0e30f;   // the Pallas kernel's NEG_INF
@@ -62,24 +81,6 @@ constexpr int kRPT = kRows / 16;      // score / output rows per thread
 constexpr int kCPT = kKeys / 16;      // score columns per thread
 constexpr int kPStride = kKeys + 1;   // padded weight row (bank spread)
 constexpr size_t kMaxSmem = 232448;   // per-block dynamic shared memory
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
-    __nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
 
 struct Args {
   const void* q;        // (B, Sq, H, D) under the q strides
@@ -92,6 +93,7 @@ struct Args {
   int causal, window, q_offset;
   int BQ;               // queries per block
   float scale;
+  int vec;              // bf16: 16-byte copies allowed
 };
 
 // max / sum over the 16 lanes that hold one row's score columns
@@ -114,9 +116,39 @@ size_t smem_bytes(int d, int dpt) {
                           (size_t)kRows * kPStride);
 }
 
-// Grid (nq tiles, KV, B).  DPT = output columns per thread (16 * DPT
-// >= D).
-template <typename T, int DPT>
+// The bf16 instantiation: the tensor-core core over contiguous K/V.
+struct FlashTC {
+  using Input = Args;
+  using Loader = attn_core::ContigLoader;
+  __device__ static void setup(const Args& a, attn_core::Params& p,
+                               Loader& L) {
+    typedef __nv_bfloat16 T;
+    const int b = blockIdx.z, kvh = blockIdx.y;
+    p.q = static_cast<const T*>(a.q) + (size_t)b * a.q_sb;
+    p.out = static_cast<T*>(a.out) + (size_t)b * a.q_sb;
+    p.q_ss = a.q_ss;
+    p.q_sh = a.q_sh;
+    p.Sq = a.Sq;
+    p.n_rep = a.H / a.KV;
+    p.kvh = kvh;
+    p.D = a.D;
+    p.qt = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+    p.qpos0 = a.q_offset;
+    p.k_max = a.Sk - 1;
+    p.causal = a.causal;
+    p.window = a.window;
+    p.scale_log2 = a.scale * 1.4426950408889634f;
+    p.vec = a.vec;
+    const size_t kv = (size_t)b * a.k_sb + (size_t)kvh * a.k_sh;
+    L.k = static_cast<const T*>(a.k) + kv;
+    L.v = static_cast<const T*>(a.v) + kv;
+    L.ss = a.k_ss;
+  }
+};
+
+// The fp32 instantiation.  Grid (nq tiles, KV, B).  DPT = output
+// columns per thread (16 * DPT >= D).
+template <int DPT>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(Args a) {
   extern __shared__ float smem[];
@@ -126,12 +158,12 @@ flash_kernel(Args a) {
   float* qs = smem;               // kRows x Dp   queries (f32)
   float* ks = qs + kRows * Dp;    // kKeys x Dp   keys of the tile
   float* vs = ks + kKeys * Dp;    // kKeys x Dv   values, zero-padded
-  float* ps = vs + kKeys * Dv;    // kRows x kPStride  rounded weights
+  float* ps = vs + kKeys * Dv;    // kRows x kPStride  softmax weights
 
-  const T* q = static_cast<const T*>(a.q);
-  const T* kp = static_cast<const T*>(a.k);
-  const T* vp = static_cast<const T*>(a.v);
-  T* out = static_cast<T*>(a.out);
+  const float* q = static_cast<const float*>(a.q);
+  const float* kp = static_cast<const float*>(a.k);
+  const float* vp = static_cast<const float*>(a.v);
+  float* out = static_cast<float*>(a.out);
   // causal: the last query tiles see the most keys; start them first
   const int qt = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int kvh = blockIdx.y, b = blockIdx.z;
@@ -140,9 +172,9 @@ flash_kernel(Args a) {
   const int t_end = min(t0 + a.BQ, a.Sq);
   const int qpos_min = a.q_offset + t0;
   const int qpos_max = a.q_offset + t_end - 1;
-  const T* qb = q + (size_t)b * a.q_sb;
-  const T* kb = kp + (size_t)b * a.k_sb + (size_t)kvh * a.k_sh;
-  const T* vb = vp + (size_t)b * a.k_sb + (size_t)kvh * a.k_sh;
+  const float* qb = q + (size_t)b * a.q_sb;
+  const float* kb = kp + (size_t)b * a.k_sb + (size_t)kvh * a.k_sh;
+  const float* vb = vp + (size_t)b * a.k_sb + (size_t)kvh * a.k_sh;
 
   for (int i = tid; i < kRows * D; i += kThreads) {
     const int r = i / D, d = i % D;
@@ -150,7 +182,7 @@ flash_kernel(Args a) {
     if (r < R) {
       const int t = t0 + r / n_rep, h = kvh * n_rep + r % n_rep;
       if (t < a.Sq)
-        x = to_f(qb[(size_t)t * a.q_ss + (size_t)h * a.q_sh + d]);
+        x = qb[(size_t)t * a.q_ss + (size_t)h * a.q_sh + d];
     }
     qs[r * Dp + d] = x;
   }
@@ -184,8 +216,8 @@ flash_kernel(Args a) {
       float kx = 0.f, vx = 0.f;
       if (j <= k_hi && d < D) {
         const size_t off = (size_t)j * a.k_ss + d;
-        kx = to_f(kb[off]);
-        vx = to_f(vb[off]);
+        kx = kb[off];
+        vx = vb[off];
       }
       if (d < D) ks[kk * Dp + d] = kx;
       vs[kk * Dv + d] = vx;
@@ -210,8 +242,7 @@ flash_kernel(Args a) {
         for (int j = 0; j < kCPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
-    // mask, online softmax; the weights go to shared memory rounded to
-    // the value dtype, the denominator sums them unrounded
+    // mask, online softmax; the weights go to shared memory
 #pragma unroll
     for (int i = 0; i < kRPT; ++i) {
       bool live[kCPT];
@@ -232,7 +263,7 @@ flash_kernel(Args a) {
       for (int j = 0; j < kCPT; ++j) {
         const float p = live[j] ? expf(s[i][j] - m_new) : 0.f;
         sum += p;
-        ps[(ty + 16 * i) * kPStride + tx + 16 * j] = to_f(from_f<T>(p));
+        ps[(ty + 16 * i) * kPStride + tx + 16 * j] = p;
       }
       sum = row_sum(sum);
       const float corr = expf(m[i] - m_new);
@@ -257,27 +288,27 @@ flash_kernel(Args a) {
     }
   }
 
-  T* ob = out + (size_t)b * a.q_sb;
+  float* ob = out + (size_t)b * a.q_sb;
 #pragma unroll
   for (int i = 0; i < kRPT; ++i) {
     if (!row_ok[i]) continue;
     const int r = ty + 16 * i;
     const int t = t0 + r / n_rep, h = kvh * n_rep + r % n_rep;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* orow = ob + (size_t)t * a.q_ss + (size_t)h * a.q_sh;
+    float* orow = ob + (size_t)t * a.q_ss + (size_t)h * a.q_sh;
 #pragma unroll
     for (int c = 0; c < DPT; ++c) {
       const int col = tx + 16 * c;
-      if (col < D) orow[col] = from_f<T>(acc[i][c] * inv);
+      if (col < D) orow[col] = acc[i][c] * inv;
     }
   }
 }
 
-template <typename T, int DPT>
+template <int DPT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes(a.D, DPT);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kern = flash_kernel<T, DPT>;
+  auto kern = flash_kernel<DPT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -286,14 +317,13 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch_d(const Args& a, cudaStream_t stream) {
   const int cols = (a.D + 15) / 16;
-  if (cols <= 1) return launch<T, 1>(a, stream);
-  if (cols <= 2) return launch<T, 2>(a, stream);
-  if (cols <= 4) return launch<T, 4>(a, stream);
-  if (cols <= 8) return launch<T, 8>(a, stream);
-  if (cols <= 16) return launch<T, 16>(a, stream);
+  if (cols <= 1) return launch<1>(a, stream);
+  if (cols <= 2) return launch<2>(a, stream);
+  if (cols <= 4) return launch<4>(a, stream);
+  if (cols <= 8) return launch<8>(a, stream);
+  if (cols <= 16) return launch<16>(a, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -315,12 +345,19 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
   if (n_rep > kRows) return (int)cudaErrorInvalidValue;
   int bq = kRows / n_rep;
   if (bq > Sq) bq = Sq;
+  using attn_core::aligned16;
+  const int vec = D % 8 == 0 && q_sb % 8 == 0 && q_ss % 8 == 0 &&
+                  q_sh % 8 == 0 && k_sb % 8 == 0 && k_ss % 8 == 0 &&
+                  k_sh % 8 == 0 && aligned16(q) && aligned16(k) &&
+                  aligned16(v) && aligned16(out);
   Args a{q, k, v, out, B, Sq, Sk, H, KV, D,
          q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-         causal, window, q_offset, bq, scale};
+         causal, window, q_offset, bq, scale, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_d<float>(a, s);
-  if (dtype == 1) return (int)launch_d<__nv_bfloat16>(a, s);
+  if (dtype == 0) return (int)launch_d(a, s);
+  if (dtype == 1) {
+    return (int)attn_core::launch<FlashTC>(a, Sq, n_rep, KV, B, D, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -18,23 +18,39 @@
 //
 // Design.  One block per (slot, KV head[, query tile]).  The block reads
 // its own block-table entries (no scalar prefetch) and walks the live
-// pages in a loop inside the block (the Pallas grid's sequential page
-// axis), NPT pages per tile.  All n_rep query heads of the KV head sit
-// in the block's rows, so each K/V page is read from device memory once
-// per block instead of once per query head as in the Pallas grid
-// (B, H, nP).  Decode blocks hold the n_rep rows of one query; prefill
-// blocks hold TQ queries x n_rep heads (TQ * n_rep ~ 64 rows).  A
-// sharded (S, R, ps, KV, D) pool arrives as the flat (S*R, ps, KV, D)
-// view, whose row index is already the table's `locality * R + slot`.
+// keys in a loop inside the block (the Pallas grid's sequential page
+// axis).  All n_rep query heads of the KV head sit in the block's rows,
+// so each K/V page is read from device memory once per block instead
+// of once per query head as in the Pallas grid (B, H, nP).  Decode
+// blocks hold the n_rep rows of one query; fp32 prefill blocks hold TQ
+// queries x n_rep heads (TQ * n_rep ~ 64 rows).  A sharded
+// (S, R, ps, KV, D) pool arrives as the flat (S*R, ps, KV, D) view,
+// whose row index is already the table's `locality * R + slot`.
 //
-// What bounds them on the H100.  Decode moves the live K/V pages once
-// and does ~2 flops per byte: it is bound by device-memory bytes, and
-// the design's answer is the one-read-per-KV-head layout above.  Chunked
-// prefill at T = 256 does ~T/2 flops per K/V byte, above the card's
-// ~295 flops/byte ridge: bound by operations.  This first version
-// computes with f32 FMAs from shared memory (no wgmma, no TMA), so it
-// runs far below the tensor-core bound; moving the two products onto
-// wgmma is the next step for it.
+// What bounds them on the H100, and what each instantiation does.
+//   * Chunked prefill at T = 256 does ~T/2 flops per K/V byte, above
+//     the card's ~295 flops/byte ridge: bound by operations, on the
+//     tensor cores.  Its bf16 instantiation runs the tensor-core core of
+//     attention_core.cuh (shared with the flash kernel) through a
+//     block-table loader: key kpos of a key tile is looked up in the
+//     slot's table (page kpos / ps, token kpos % ps) and its D-wide row
+//     (256 bytes at D 128) copied from the pool by 16-byte cp.async into
+//     a two-stage bf16 ring; both products as warp-group wgmma.  At the
+//     engine's B 1 x T 256 chunk with 32/4 heads, 128-row blocks would
+//     be 64 for 132 SMs; so it launches 128 blocks of 64 rows (32 query
+//     tiles x 4 KV heads) whose two warp groups split the keys (8 warps
+//     per block), heaviest query tile first.
+//   * Decode moves the live K/V pages once and does ~2 flops per byte:
+//     bound by device-memory bytes; the design's answer is the
+//     one-read-per-KV-head layout above.  Decode (both dtypes) and fp32
+//     prefill keep `attend_block`: f32 FMAs from shared memory (TF32
+//     cannot hold the reference's 1e-5).  Decode's 32 blocks at B 8
+//     leave most SMs idle: a split over pages is its next step.
+// The build log (-Xptxas -v) gives registers, stack and spills for
+// every instantiation, and chip_smoke.py prints them.  bf16 at D 128
+// (CUDA 12.8): 211 registers and 163,840 bytes of dynamic shared
+// memory on 128 rows, 161 and 147,456 with the keys split; no
+// instantiation spills or keeps a stack frame.
 //
 // C interface (ctypes): pointers and the stream are void*, every launch
 // returns cudaGetLastError() and the Python wrapper raises when it is
@@ -43,6 +59,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "attention_core.cuh"
 
 namespace {
 
@@ -81,6 +99,7 @@ struct Args {
   int TQ;               // queries per block
   int NPT;              // pages per tile
   float scale;
+  int vec;              // bf16 prefill: 16-byte copies allowed
 };
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -248,6 +267,39 @@ paged_prefill_kernel(Args a) {
   attend_block<T>(a, blockIdx.z, blockIdx.y, blockIdx.x);
 }
 
+// bf16 chunked prefill: the tensor-core core through the block tables,
+// grid (ceil(T / TQ), KV, B), heaviest (last) query tile first.
+struct PrefillTC {
+  using Input = Args;
+  using Loader = attn_core::PagedLoader;
+  __device__ static void setup(const Args& a, attn_core::Params& p,
+                               Loader& L) {
+    typedef __nv_bfloat16 T;
+    const int b = blockIdx.z, kvh = blockIdx.y;
+    const size_t row = (size_t)b * a.Tq * a.H * a.D;
+    p.q = static_cast<const T*>(a.q) + row;
+    p.out = static_cast<T*>(a.out) + row;
+    p.q_ss = (long long)a.H * a.D;
+    p.q_sh = a.D;
+    p.Sq = a.Tq;
+    p.n_rep = a.H / a.KV;
+    p.kvh = kvh;
+    p.D = a.D;
+    p.qt = gridDim.x - 1 - blockIdx.x;
+    p.qpos0 = a.qstart[b];
+    p.k_max = a.P * a.ps - 1;
+    p.causal = 1;
+    p.window = a.window;
+    p.scale_log2 = a.scale * 1.4426950408889634f;
+    p.vec = a.vec;
+    L.k = static_cast<const T*>(a.k) + (size_t)kvh * a.D;
+    L.v = static_cast<const T*>(a.v) + (size_t)kvh * a.D;
+    L.table = a.tables + (size_t)b * a.P;
+    L.ps = a.ps;
+    L.token = (long long)a.KV * a.D;
+  }
+};
+
 template <typename T>
 cudaError_t launch(Args a, bool prefill, cudaStream_t stream) {
   const int n_rep = a.H / a.KV;
@@ -278,6 +330,10 @@ int dispatch(Args a, int dtype, bool prefill, void* stream) {
   a.NPT = kTileKeys / a.ps > 0 ? kTileKeys / a.ps : 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch<float>(a, prefill, s);
+  if (dtype == 1 && prefill) {
+    return (int)attn_core::launch<PrefillTC>(a, a.Tq, a.H / a.KV, a.KV, a.B,
+                                             a.D, s);
+  }
   if (dtype == 1) return (int)launch<__nv_bfloat16>(a, prefill, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -295,7 +351,7 @@ int paged_attention_decode(const void* q, const void* k, const void* v,
                            void* stream) {
   Args a{q, k, v, static_cast<const int*>(tables),
          static_cast<const int*>(positions), out,
-         B, 1, H, KV, D, ps, P, window, 1, 1, scale};
+         B, 1, H, KV, D, ps, P, window, 1, 1, scale, 0};
   return dispatch(a, dtype, false, stream);
 }
 
@@ -310,9 +366,12 @@ int paged_prefill_attention(const void* q, const void* k, const void* v,
   int tq = kRowsPrefill / (n_rep > 0 ? n_rep : 1);
   if (tq < 1) tq = 1;
   if (tq > T) tq = T;
+  using attn_core::aligned16;
+  const int vec = D % 8 == 0 && aligned16(q) && aligned16(k) &&
+                  aligned16(v) && aligned16(out);
   Args a{q, k, v, static_cast<const int*>(tables),
          static_cast<const int*>(start), out,
-         B, T, H, KV, D, ps, P, window, tq, 1, scale};
+         B, T, H, KV, D, ps, P, window, tq, 1, scale, vec};
   return dispatch(a, dtype, true, stream);
 }
 

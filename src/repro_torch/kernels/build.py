@@ -4,9 +4,10 @@ Each kernel source under a ``csrc/`` directory is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library with a plain C
 interface, loaded with `ctypes`.  The build runs at first use, into
 ``build/repro_torch_kernels/`` at the root of the checkout, and is
-keyed by a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one is loaded as it is.  Several sources
-build in parallel (`build_all`), one ``nvcc`` each.
+keyed by a hash of the source, the files it includes by a quoted
+``#include`` (a shared ``.cuh``), and the flags, so an edited source
+or header rebuilds and an unchanged one is loaded as it is.  Several
+sources build in parallel (`build_all`), one ``nvcc`` each.
 
 Nothing here runs at import time: the CPU tests import every module
 of the port on a machine without ``nvcc``.
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -29,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_QUOTED_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 
 def nvcc_path() -> str:
@@ -47,10 +50,27 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
+def included_files(source: Path) -> List[Path]:
+    """`source` and every file it pulls in by a quoted ``#include``,
+    recursively, each path taken relative to the file that names it."""
+    found: List[Path] = []
+    todo = [Path(source)]
+    while todo:
+        f = todo.pop()
+        if f in found:
+            continue
+        found.append(f)
+        todo.extend(f.parent / m.decode()
+                    for m in _QUOTED_INCLUDE.findall(f.read_bytes()))
+    return found
+
+
 def library_path(source: Path) -> Path:
     """Where the library of `source` lands: named by the source's stem
-    and a hash of its text and the flags."""
-    h = hashlib.sha256(source.read_bytes())
+    and a hash of its text, of the files it includes, and the flags."""
+    h = hashlib.sha256()
+    for f in included_files(source):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 

@@ -9,7 +9,11 @@ pools, window 0 and 6, one or two KV heads; fp32 atol 1e-5, bf16 atol
 2e-2 (the summation orders differ).  Flash kernel: causal and not,
 window 0 and 24, a `q_offset` continuation and lengths that are not a
 multiple of its 64-key tile, 2 or 4 query heads per KV head; fp32 atol
-2e-5 (the reference's flash tolerance), bf16 atol 3e-2.  Selective
+2e-5 (the reference's flash tolerance), bf16 atol 3e-2.  Both at the
+served head dims (D 64, 120, 128 at n_rep 1, 4, 8 and 12), with query
+counts that are not a multiple of 16 and key ranges that start
+mid-tile: fp32 at the same atols, bf16 per element at 2^-7 * (sum_j
+p_j |v_j| + |o|), the bound `chip_smoke.py` holds them to.  Selective
 scan: a prompt whose length is not a multiple of the 64-step tile and
 whose channels do not fill the last block, a decode step, state sizes
 4, 8 and 16, a zero and a given initial state, every states-per-thread
@@ -126,6 +130,153 @@ def test_cuda_flash_kernel_matches_plain(dtype, tol, shape):
                 assert flash.LAUNCHES == {"flash_attention_bhsd": 1}
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+# the tensor-core instantiations (bf16) and the CUDA-core ones (fp32)
+# at the served head dims: musicgen's D 64 at n_rep 1, h2o-danube's
+# D 120 at n_rep 4 with a window, yi-6b's D 128 at n_rep 8 and
+# command-r's n_rep 12 (60-row blocks); and D 20, not a multiple of 8,
+# which the tensor-core kernels load element by element; query counts
+# that are not a multiple of 16, and key ranges that start mid-tile
+# (q_offset, start not on a page)
+HEAD_CASES = [  # (H, KV, D, window)
+    (4, 4, 64, 0),
+    (8, 2, 120, 24),
+    (16, 2, 128, 0),
+    (24, 2, 128, 0),
+    (4, 2, 20, 0),
+]
+HEAD_IDS = ["d64-rep1", "d120-rep4-window", "d128-rep8", "d128-rep12",
+            "d20-element-loads"]
+
+
+def _bf16_bound(plain_abs, want):
+    """A bf16 ulp of each softmax weight times its value plus one of the
+    output: 2^-7 * (sum_j p_j |v_j| + |o|), per element."""
+    return 2.0 ** -7 * (plain_abs.float() + want.float().abs())
+
+
+def _hold(got, want, plain_abs, fp32_atol):
+    got, want = got.float(), want.float()
+    assert bool(torch.isfinite(got).all())
+    if plain_abs is None:
+        torch.testing.assert_close(got, want, atol=fp32_atol, rtol=0)
+    else:
+        bound = _bf16_bound(plain_abs, want)
+        assert bool(((got - want).abs() <= bound).all()), \
+            float(((got - want).abs() / bound).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", HEAD_CASES, ids=HEAD_IDS)
+def test_cuda_flash_kernel_served_head_dims(dtype, heads):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel is CUDA C++ and "
+                    "has no CPU mode")
+    from repro_torch.kernels.attention import flash, ref
+    h, kvh, d, window = heads
+    rng = np.random.default_rng(h + d)
+    dt = getattr(torch, dtype)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        # (Sq, Sk, q_offset): a whole prompt of 77 queries, and 45
+        # queries continuing at 33 (keys start mid-tile)
+        for sq, sk, off in ((77, 77, 0), (45, 78, 33)):
+            q, k, v = (torch.from_numpy(rng.normal(size=s).astype(
+                np.float32)).cuda().to(dt)
+                for s in ((1, sq, h, d), (1, sk, kvh, d), (1, sk, kvh, d)))
+            for causal in (True, False):
+                kw = dict(causal=causal, window=window, q_offset=off)
+                flash.reset_launches()
+                got = flash.flash_attention_bshd(q, k, v, **kw)
+                assert flash.LAUNCHES == {"flash_attention_bhsd": 1}
+                want = ref.flash_attention_ref(q, k, v, **kw)
+                plain_abs = None if dt == torch.float32 else \
+                    ref.flash_attention_ref(q, k, v.abs(), **kw)
+                _hold(got, want, plain_abs, 2e-5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", HEAD_CASES, ids=HEAD_IDS)
+def test_cuda_prefill_kernel_served_head_dims(dtype, heads):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ and "
+                    "have no CPU mode")
+    from repro_torch.kernels.attention import paged, ref
+    h, kvh, d, window = heads
+    rng = np.random.default_rng(7 * h + d)
+    dt = getattr(torch, dtype)
+    ps, ptab, n, t = 16, 8, 20, 37
+    # two slots: one from 0, one continuing at 23 (not on a page)
+    start = torch.tensor([0, 23], dtype=torch.int32).cuda()
+    kp, vp = (torch.from_numpy(rng.normal(size=(n, ps, kvh, d)).astype(
+        np.float32)).cuda().to(dt) for _ in range(2))
+    tables = torch.from_numpy(rng.integers(0, n, size=(2, ptab)).astype(
+        np.int32)).cuda()
+    q = torch.from_numpy(rng.normal(size=(2, t, h, d)).astype(
+        np.float32)).cuda().to(dt)
+    for sharded in (False, True):
+        pools = (kp, vp) if not sharded else \
+            (kp.reshape(2, n // 2, ps, kvh, d),
+             vp.reshape(2, n // 2, ps, kvh, d))
+        paged.reset_launches()
+        got = paged.paged_prefill_attention_btd(q, *pools, tables, start,
+                                                window=window)
+        assert paged.LAUNCHES == {"paged_attention_bhd": 0,
+                                  "paged_prefill_attention_btd": 1}
+        want = ref.paged_prefill_attention_ref(q, *pools, tables, start,
+                                               window=window)
+        plain_abs = None if dt == torch.float32 else \
+            ref.paged_prefill_attention_ref(q, pools[0], pools[1].abs(),
+                                            tables, start, window=window)
+        _hold(got, want, plain_abs, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash", "prefill"])
+def test_cuda_tensor_core_block_shapes(kernel):
+    """Grids large enough for the 128-row blocks (two warp groups on
+    different rows) beside the small ones above (two warp groups
+    splitting the keys of 64 rows): yi-6b's 32/4 heads of 128, bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ and "
+                    "have no CPU mode")
+    from repro_torch.kernels.attention import flash, paged, ref
+    rng = np.random.default_rng(5)
+    h, kvh, d = 32, 4, 128
+
+    def cuda(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).cuda().to(torch.bfloat16)
+
+    if kernel == "flash":
+        q, k, v = cuda(1, 1000, h, d), cuda(1, 1000, kvh, d), \
+            cuda(1, 1000, kvh, d)
+        flash.reset_launches()
+        got = flash.flash_attention_bshd(q, k, v)
+        assert flash.LAUNCHES == {"flash_attention_bhsd": 1}
+        want = ref.flash_attention_ref(q, k, v)
+        plain_abs = ref.flash_attention_ref(q, k, v.abs())
+    else:
+        ps, ptab, n = 16, 40, 330
+        kp, vp = cuda(n, ps, kvh, d), cuda(n, ps, kvh, d)
+        tables = torch.from_numpy(rng.permutation(n)[:8 * ptab].reshape(
+            8, ptab).astype(np.int32)).cuda()
+        start = torch.tensor([0, 5, 64, 100, 128, 200, 300, 383],
+                             dtype=torch.int32).cuda()
+        q = cuda(8, 256, h, d)
+        paged.reset_launches()
+        got = paged.paged_prefill_attention_btd(q, kp, vp, tables, start)
+        assert paged.LAUNCHES["paged_prefill_attention_btd"] == 1
+        want = ref.paged_prefill_attention_ref(q, kp, vp, tables, start)
+        plain_abs = ref.paged_prefill_attention_ref(q, kp, vp.abs(),
+                                                    tables, start)
+    _hold(got, want, plain_abs, None)
 
 
 def test_flash_kernel_path_refuses_cpu_tensors():

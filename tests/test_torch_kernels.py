@@ -116,10 +116,77 @@ def test_cpu_dispatch_uses_plain_version_and_counts_nothing():
                                      use_kernel=True)
 
 
+def _c_signature(src: str, name: str) -> str:
+    """The declaration of C entry point `name` in `src`, whitespace
+    collapsed."""
+    start = src.index(f"int {name}(")
+    return " ".join(src[start:src.index(")", start) + 1].split())
+
+
 def test_kernel_source_has_its_c_interface():
-    """The CUDA source ships with the package and exports the two C
-    entry points the ctypes wrappers bind."""
+    """The CUDA sources ship with the package and export the C entry
+    points the ctypes wrappers bind, with the signatures they bind."""
+    from repro_torch.kernels.attention import flash as tflash
     src = tpaged.SOURCE.read_text()
-    assert "int paged_attention_decode(" in src
-    assert "int paged_prefill_attention(" in src
+    assert _c_signature(src, "paged_attention_decode") == (
+        "int paged_attention_decode(const void* q, const void* k, "
+        "const void* v, const void* tables, const void* positions, "
+        "void* out, int B, int H, int KV, int D, int ps, int P, "
+        "int window, float scale, int dtype, void* stream)")
+    assert _c_signature(src, "paged_prefill_attention") == (
+        "int paged_prefill_attention(const void* q, const void* k, "
+        "const void* v, const void* tables, const void* start, "
+        "void* out, int B, int T, int H, int KV, int D, int ps, int P, "
+        "int window, float scale, int dtype, void* stream)")
     assert "cudaGetLastError" in src
+    src = tflash.SOURCE.read_text()
+    assert _c_signature(src, "flash_attention") == (
+        "int flash_attention(const void* q, const void* k, "
+        "const void* v, void* out, int B, int Sq, int Sk, int H, "
+        "int KV, int D, long long q_sb, long long q_ss, long long q_sh, "
+        "long long k_sb, long long k_ss, long long k_sh, int causal, "
+        "int window, int q_offset, float scale, int dtype, "
+        "void* stream)")
+    assert "cudaGetLastError" in src
+
+
+def test_build_hash_covers_included_headers(tmp_path):
+    """The library path of a source changes when a header it includes
+    by a quoted #include changes, and the two attention sources both
+    pull in the shared tensor-core core (on copies, not the repo's
+    files)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.attention import flash as tflash
+    for source in (tpaged.SOURCE, tflash.SOURCE):
+        names = [f.name for f in build.included_files(source)]
+        assert names == [source.name, "attention_core.cuh"]
+    src_dir = tpaged.SOURCE.parent
+    for f in ("paged_attention.cu", "attention_core.cuh"):
+        (tmp_path / f).write_bytes((src_dir / f).read_bytes())
+    copy = tmp_path / "paged_attention.cu"
+    before = build.library_path(copy)
+    assert build.library_path(copy) == before
+    header = tmp_path / "attention_core.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = build.library_path(copy)
+    assert after != before
+    assert after.name.startswith("libpaged_attention-")
+
+
+def test_build_hash_follows_nested_quoted_includes(tmp_path):
+    """A header included by an included header is hashed too, each path
+    taken relative to the file that names it; angle-bracket includes
+    (the toolkit's own headers) are not followed."""
+    from repro_torch.kernels import build
+    (tmp_path / "inc").mkdir()
+    src = tmp_path / "k.cu"
+    src.write_text('#include <cuda_runtime.h>\n#include "inc/a.cuh"\n')
+    (tmp_path / "inc" / "a.cuh").write_text('#include "b.cuh"\n')
+    inner = tmp_path / "inc" / "b.cuh"
+    inner.write_text("// b\n")
+    assert [f.name for f in build.included_files(src)] == [
+        "k.cu", "a.cuh", "b.cuh"]
+    before = build.library_path(src)
+    inner.write_text("// b, edited\n")
+    assert build.library_path(src) != before
+
