@@ -19,8 +19,8 @@ last line):
    into ``build/repro_torch_kernels/``, one nvcc each, started
    together; then the ``-Xptxas -v`` lines (registers, stack, spills)
    of every instantiation of the tensor-core attention core that the
-   two attention sources share (`attention_core.cuh`), with its
-   dynamic shared memory;
+   two attention sources share (`attention_core.cuh`) and of the split
+   decode kernel and its combine, with their dynamic shared memory;
 3. kernel against plain version on random inputs.  Paged kernels at
    the serve configuration's shapes: yi-6b's attention (H 32, KV 4,
    D 128), page 16, block tables of max_len / page = 128 pages, decode
@@ -36,7 +36,12 @@ last line):
    other served head layouts: h2o-danube-3-4b's (H 32, KV 8, D 120,
    window 512) and musicgen-large's (H 32, KV 32, D 64): decode and
    the B 1 x T 256 prefill, and flash at S 1000 and at 768 queries
-   continuing at 768.  Tolerances: fp32 atol 1e-5 (paged; the
+   continuing at 768.  Decode also at clocks on and beside page and
+   split edges (EDGE_CLOCKS: 0, 15, 16, 127, 128, 2047), one slot at a
+   time and all eight together with a slot at 0 beside one at 2047,
+   window 0 and 512 (whose leading splits lie wholly behind it), flat
+   and sharded pools, each line with the split plan and the splits
+   that read a key.  Tolerances: fp32 atol 1e-5 (paged; the
    reference's `test_serving_paged.py` tolerance) and 2e-5 (flash;
    `test_kernels.py`'s); bf16, per element, 2^-7 * (sum_j p_j |v_j| +
    |o|): one bf16 ulp of each softmax weight times its value plus one
@@ -73,8 +78,9 @@ last line):
    calls) and the bound, each per launch; the kernel and SDPA sequences
    also as CUDA graphs (``kernel_graph_ms``, ``library_graph_ms``: the
    device's time without the host's launch overhead, which the short
-   calls are bound by).  The bound of a call is the
-   larger of the bytes it must move over 3.35 TB/s (paged: each
+   calls are bound by); the decode lines also carry its split plan
+   (pages per split, splits) and its workspace bytes.  The bound of a
+   call is the larger of the bytes it must move over 3.35 TB/s (paged: each
    distinct live K/V page once, q and o once; flash: q, k, v and o
    once) and its flops (4 * head_dim per visible query, head and key:
    the live causal area) over 989 TFLOP/s (H100 SXM data-sheet peaks);
@@ -216,9 +222,19 @@ FLASH_SHAPES = [shape for s in FLASH_LENGTHS
 OTHER_HEADS = (("h2o-danube-3-4b", (32, 8, 120), 512),
                ("musicgen-large", (32, 32, 64), 0))
 OTHER_FLASH_SHAPES = ((1000, 1000, 0), (768, 1536, 768))
-# the attention kernels rebuilt on the tensor cores: their ptxas lines
-# are printed after the build
+# the attention kernels rebuilt on the tensor cores, and the split
+# decode kernel with its combine: their ptxas lines are printed after
+# the build
 TC_KERNEL = "tc_kernel"
+DECODE_KERNEL = "decode_"
+# the CUDA-core decode kernel's dynamic shared memory: 4 warps x a ring
+# of 4 bf16 (2 fp32) stages x K and V tiles of 1024 elements
+# (paged_attention.cu)
+DECODE_SMEM_BYTES = 65536
+# decode clocks on and beside page (16) and split (128 at the serve
+# path) edges, and the table's last key; checked one slot at a time and
+# all together beside a slot at 0 and one at 2047
+EDGE_CLOCKS = (0, 15, 16, 127, 128, 2047)
 
 
 def emit(obj) -> None:
@@ -271,6 +287,31 @@ def tc_shape(function: str):
             "dynamic_smem_bytes": 2 * (64 * mr + 4 * ng * kn) * 16 * kd}
 
 
+def decode_shape(function: str):
+    """The template arguments of a decode instantiation read from its
+    mangled name, with its dynamic shared memory: the tensor-core kernel
+    (KD = padded head dim / 16; HI, more than 8 query heads a KV head;
+    VEC, 16-byte copies) takes 4 warps x 3 stages x K and V tiles of 16
+    keys x (16 KD + 8) bf16; the CUDA-core kernel (dtype, ROWS query
+    heads a block, VEC) takes DECODE_SMEM_BYTES; the combine none."""
+    m = re.search(r"decode_mma_kernelILi(\d+)ELb([01])ELb([01])E", function)
+    if m:
+        kd = int(m.group(1))
+        return {"kernel": "decode_mma", "dtype": "bfloat16", "kd": kd,
+                "hi": m.group(2) == "1", "vec": m.group(3) == "1",
+                "dynamic_smem_bytes": 4 * 3 * 2 * 16 * (16 * kd + 8) * 2}
+    m = re.search(r"decode_(fma|combine)_kernelI(13__nv_bfloat16|f)"
+                  r"(?:Li(\d+)ELb([01])E)?", function)
+    if not m:
+        return {}
+    out = {"kernel": f"decode_{m.group(1)}",
+           "dtype": "float32" if m.group(2) == "f" else "bfloat16"}
+    if m.group(3):
+        out.update(rows=int(m.group(3)), vec=m.group(4) == "1",
+                   dynamic_smem_bytes=DECODE_SMEM_BYTES)
+    return out
+
+
 def time_ms(fns, iters: int) -> float:
     """Mean ms per call over `iters` passes through the list `fns`,
     after three warm-up passes; CUDA events around the timed passes."""
@@ -292,21 +333,25 @@ def time_ms(fns, iters: int) -> float:
 
 # -- inputs and bounds ---------------------------------------------------
 
-def make_inputs(gen, b, t, dtype, sharded, decode, heads=(H, KV, D)):
+def make_inputs(gen, b, t, dtype, sharded, decode, heads=(H, KV, D),
+                clocks=None):
     """Random pool whose last row is the null row; block tables of
     width P over random rows up to each slot's last live page and the
     null row past it.  Decode: clocks in [0, MAX_LEN), the IDLE slots
-    on the null row at position 0.  Prefill: page-aligned starts in
-    [0, MAX_LEN - t].  `heads` is (H, KV, D)."""
+    on the null row at position 0, or the given `clocks` (b of them).
+    Prefill: page-aligned starts in [0, MAX_LEN - t].  `heads` is (H,
+    KV, D)."""
     import torch
     H, KV, D = heads
     n = b * P + 2
     null = n - 1
     kp = torch.randn(n, PS, KV, D, generator=gen, device="cuda").to(dtype)
     vp = torch.randn(n, PS, KV, D, generator=gen, device="cuda").to(dtype)
+    given = clocks is not None
     if decode:
-        clocks = torch.randint(0, MAX_LEN, (b,), generator=gen,
-                               device="cuda", dtype=torch.int32)
+        clocks = torch.tensor(clocks, dtype=torch.int32, device="cuda") \
+            if given else torch.randint(0, MAX_LEN, (b,), generator=gen,
+                                        device="cuda", dtype=torch.int32)
         q = torch.randn(b, H, D, generator=gen, device="cuda").to(dtype)
         last = clocks // PS
     else:
@@ -319,7 +364,7 @@ def make_inputs(gen, b, t, dtype, sharded, decode, heads=(H, KV, D)):
                            dtype=torch.int32)
     live = torch.arange(P, device="cuda")[None] <= last[:, None]
     tables = torch.where(live, tables, null).to(torch.int32)
-    if decode:
+    if decode and not given:
         for s in IDLE:
             tables[s] = null
             clocks[s] = 0
@@ -484,6 +529,31 @@ def time_sequence(name, kern, plain, lib, bounds, gpu, dtype="bfloat16",
     return out
 
 
+def decode_split(q, kp, tables):
+    """The split plan of a decode call (`paged.decode_split_plan` on
+    this card) and the bytes of its f32 workspace."""
+    import torch
+    from repro_torch.kernels.attention import paged
+    b, h, d = q.shape
+    pps, splits = paged.decode_split_plan(
+        b, h, kp.shape[-2], tables.shape[1], PS,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
+    return {"pages_per_split": pps, "splits": splits,
+            "workspace_bytes": b * h * splits * (d + 2) * 4}
+
+
+def live_splits(plan, clock, window):
+    """How many splits of a slot at `clock` read any key
+    (`paged.split_key_range`); the others write an empty partial."""
+    from repro_torch.kernels.attention import paged
+    n = 0
+    for s in range(plan["splits"]):
+        first, last = paged.split_key_range(s, plan["pages_per_split"], PS,
+                                            P, clock, window)
+        n += first <= last
+    return n
+
+
 def time_calls(name, calls, gpu, **line):
     """Time a list of (q, kp, vp, tables, clocks) calls of one paged
     kernel in bf16 (`time_sequence`); the library call is SDPA on
@@ -493,6 +563,8 @@ def time_calls(name, calls, gpu, **line):
     lib = [sdpa_call(*c, 0, decode) for c in calls]
     bounds = [bound_times(q, tables, clocks, 0, decode)
               for q, _, _, tables, clocks in calls]
+    if decode:
+        line.update(decode_split(calls[0][0], calls[0][1], calls[0][3]))
     return time_sequence(name, [k for k, _ in thunks],
                          [p for _, p in thunks], lib, bounds, gpu,
                          graph=True, **line)
@@ -564,7 +636,8 @@ def time_flash(calls, gpu, **line):
 
 def phase_kernels(gpu: str):
     """Random inputs at the serve configuration's shapes, every dtype,
-    pool layout and window; B 8 timings as extra lines."""
+    pool layout and window; decode at the EDGE_CLOCKS; B 8 timings as
+    extra lines."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst = {DECODE: 0.0, PREFILL: 0.0}
@@ -614,6 +687,36 @@ def phase_kernels(gpu: str):
                          f"tolerance")
                 if dtype == torch.bfloat16:
                     worst[name] = max(worst[name], err)
+    # decode at clocks on and beside page and split edges, with and
+    # without a window that leaves the leading splits behind it
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for clocks in [(c,) for c in EDGE_CLOCKS] + \
+                [EDGE_CLOCKS + (0, MAX_LEN - 1)]:
+            for window in (0, 512):
+                for sharded in (False, True)[:1 + (len(clocks) > 1)]:
+                    q, kp, vp, tables, clk = make_inputs(
+                        gen, len(clocks), 1, dtype, sharded, True,
+                        clocks=clocks)
+                    err, ratio = compare(DECODE, q, kp, vp, tables, clk,
+                                         window)
+                    plan = decode_split(q, kp, tables)
+                    live = [live_splits(plan, c, window) for c in clocks]
+                    emit({"check": DECODE, "inputs": "split edges",
+                          "dtype": dname,
+                          "pool": "sharded" if sharded else "flat",
+                          "window": window, "batch": len(clocks),
+                          "clocks": list(clocks), **plan,
+                          "live_splits": live, "max_abs_err": err,
+                          "err_over_tol": ratio, "tol": TOL[dname],
+                          "ok": ratio <= 1.0})
+                    if ratio > 1.0:
+                        fail(f"{DECODE} disagrees with its plain version "
+                             f"at clocks {list(clocks)} ({dtype}, "
+                             f"sharded={sharded}, window={window}): max "
+                             f"abs err {err}, {ratio} times its tolerance")
+                    if dtype == torch.bfloat16:
+                        worst[DECODE] = max(worst[DECODE], err)
     for name, b, t in ((DECODE, SLOTS, 1), (PREFILL, 8, CHUNK)):
         call = make_inputs(gen, b, t, torch.bfloat16, False, name == DECODE)
         time_calls(name, [call], gpu, inputs="random", batch=b, tokens=t,
@@ -1737,6 +1840,11 @@ def main() -> None:
                                   TC_KERNEL):
             emit({"ptxas": lib.name, **tc_shape(entry["function"]),
                   **entry})
+    # and of the split decode kernel and its combine (paged source)
+    for entry in ptxas_report(libs[0].with_suffix(".log").read_text(),
+                              DECODE_KERNEL):
+        emit({"ptxas": libs[0].name, **decode_shape(entry["function"]),
+              **entry})
 
     worst = phase_kernels(gpu)
     worst[FLASH] = phase_flash_kernel(gpu)

@@ -13,7 +13,11 @@ multiple of its 64-key tile, 2 or 4 query heads per KV head; fp32 atol
 served head dims (D 64, 120, 128 at n_rep 1, 4, 8 and 12), with query
 counts that are not a multiple of 16 and key ranges that start
 mid-tile: fp32 at the same atols, bf16 per element at 2^-7 * (sum_j
-p_j |v_j| + |o|), the bound `chip_smoke.py` holds them to.  Selective
+p_j |v_j| + |o|), the bound `chip_smoke.py` holds them to.  The split
+decode kernel besides at those head dims, at clocks on and beside page
+and split edges (0, 15, 16, 127, 128, 2047, one slot alone and eight
+together) with window 0 and 512, flat and sharded pools, and captured
+in a CUDA graph that is replayed with new clocks.  Selective
 scan: a prompt whose length is not a multiple of the 64-step tile and
 whose channels do not fill the last block, a decode step, state sizes
 4, 8 and 16, a zero and a given initial state, every states-per-thread
@@ -235,6 +239,131 @@ def test_cuda_prefill_kernel_served_head_dims(dtype, heads):
             ref.paged_prefill_attention_ref(q, pools[0], pools[1].abs(),
                                             tables, start, window=window)
         _hold(got, want, plain_abs, 1e-5)
+
+
+def _decode_case(rng, dt, positions, heads, ps, ptab, sharded):
+    """Decode inputs on the card: a pool of distinct rows per slot (an
+    even count, so it also reshapes to two shards), tables over them,
+    the given clocks."""
+    h, kvh, d = heads
+    b = len(positions)
+    n = b * ptab + (b * ptab) % 2
+
+    def cuda(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).cuda().to(dt)
+
+    kp, vp = cuda(n, ps, kvh, d), cuda(n, ps, kvh, d)
+    if sharded:
+        kp = kp.reshape(2, n // 2, ps, kvh, d)
+        vp = vp.reshape(2, n // 2, ps, kvh, d)
+    tables = torch.from_numpy(rng.permutation(n)[:b * ptab].reshape(
+        b, ptab).astype(np.int32)).cuda()
+    pos = torch.tensor(positions, dtype=torch.int32).cuda()
+    return cuda(b, h, d), kp, vp, tables, pos
+
+
+def _hold_decode(q, kp, vp, tables, pos, window):
+    """One decode launch against the plain version: fp32 at 1e-5, bf16
+    per element at the bf16 bound."""
+    from repro_torch.kernels.attention import paged, ref
+    paged.reset_launches()
+    got = paged.paged_attention_bhd(q, kp, vp, tables, pos, window=window)
+    assert paged.LAUNCHES == {"paged_attention_bhd": 1,
+                              "paged_prefill_attention_btd": 0}
+    want = ref.paged_attention_ref(q[:, None], kp, vp, tables, pos,
+                                   window=window)[:, 0]
+    plain_abs = None if q.dtype == torch.float32 else \
+        ref.paged_attention_ref(q[:, None], kp, vp.abs(), tables, pos,
+                                window=window)[:, 0]
+    _hold(got, want, plain_abs, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", HEAD_CASES, ids=HEAD_IDS)
+def test_cuda_decode_kernel_served_head_dims(dtype, heads):
+    """The split decode kernel at the served head dims (lane groups of
+    8, 16 and 4 lanes; one and two row groups; element loads at D 20
+    in bf16), three slots at clocks 0, mid-page and the table's last
+    key, over several splits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ and "
+                    "have no CPU mode")
+    from repro_torch.kernels.attention import paged
+    h, kvh, d, window = heads
+    rng = np.random.default_rng(11 * h + d)
+    ps, ptab = 16, 8
+    assert paged.decode_split_plan(3, h, kvh, ptab, ps, 132)[1] > 1
+    for sharded in (False, True):
+        c = _decode_case(rng, getattr(torch, dtype), [0, 37, ps * ptab - 1],
+                         (h, kvh, d), ps, ptab, sharded)
+        _hold_decode(*c, window)
+
+
+EDGE_CLOCKS = (0, 15, 16, 127, 128, 2047)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 8])
+def test_cuda_decode_split_edges(dtype, batch):
+    """Clocks on and beside page and split edges (pages of 16, splits of
+    4-32 pages over a (B, 128) table), a slot at 0 beside one at 2047,
+    a 512-key window whose leading splits lie wholly behind it, flat
+    and sharded pools; yi-6b's 8 query heads per KV head at D 128."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ and "
+                    "have no CPU mode")
+    from repro_torch.kernels.attention import paged
+    rng = np.random.default_rng(batch)
+    heads, ps, ptab = (16, 2, 128), 16, 128
+    cases = [[c] for c in EDGE_CLOCKS] if batch == 1 else \
+        [list(EDGE_CLOCKS) + [0, 2047]]
+    for positions in cases:
+        pps, splits = paged.decode_split_plan(len(positions), heads[0],
+                                              heads[1], ptab, ps, 132)
+        assert splits > 1
+        for window in (0, 512):
+            for sharded in (False, True):
+                c = _decode_case(rng, getattr(torch, dtype), positions,
+                                 heads, ps, ptab, sharded)
+                _hold_decode(*c, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_decode_graph_replay(dtype):
+    """One decode call captured in a CUDA graph and replayed twice with
+    new clocks written into its positions tensor: each replay agrees
+    with the plain version at its clocks (the workspace and the combine
+    carry nothing from one call to the next)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ and "
+                    "have no CPU mode")
+    from repro_torch.kernels.attention import paged, ref
+    rng = np.random.default_rng(3)
+    q, kp, vp, tables, pos = _decode_case(
+        rng, getattr(torch, dtype), [2047, 0, 500, 1000], (16, 2, 128),
+        16, 128, False)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paged.paged_attention_bhd(q, kp, vp, tables, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged.paged_attention_bhd(q, kp, vp, tables, pos)
+    for clocks in ([5, 2047, 16, 127], [1500, 300, 0, 2047]):
+        pos.copy_(torch.tensor(clocks, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ref.paged_attention_ref(q[:, None], kp, vp, tables,
+                                       pos)[:, 0]
+        plain_abs = None if q.dtype == torch.float32 else \
+            ref.paged_attention_ref(q[:, None], kp, vp.abs(), tables,
+                                    pos)[:, 0]
+        _hold(out, want, plain_abs, 1e-5)
 
 
 @pytest.mark.cuda

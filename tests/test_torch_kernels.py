@@ -7,7 +7,9 @@ on the same numpy inputs: flat and sharded pools, window 0/6, one or
 two KV heads, fp32, atol 1e-5 (the reference's paged-attention
 tolerance).  The CUDA kernels are held against the plain versions in
 `tests/test_torch_cuda.py`, which needs a card and skips without one;
-`chip_smoke.py` runs the same comparison at full width.
+`chip_smoke.py` runs the same comparison at full width.  The decode
+kernel's split plan, which the wrapper computes on the host, is checked
+here: its bounds, and that the splits cover each live key once.
 """
 
 import numpy as np
@@ -116,6 +118,49 @@ def test_cpu_dispatch_uses_plain_version_and_counts_nothing():
                                      use_kernel=True)
 
 
+def test_decode_split_plan_fills_the_card_within_bounds():
+    """The decode split comes from the shapes and the SM count: the
+    serve path's B 8 x (8, 128) tables of 16-token pages with 32/4 heads
+    on 132 SMs take 16 splits of 8 pages (512 blocks); a lone slot takes
+    splits of MIN_SPLIT_KEYS, a crowded grid splits of MAX_SPLIT_KEYS,
+    and n_rep 32 two row groups of blocks."""
+    plan = tpaged.decode_split_plan
+    assert plan(8, 32, 4, 128, 16, 132) == (8, 16)
+    assert plan(1, 32, 4, 128, 16, 132) == (2, 64)
+    assert plan(64, 32, 4, 128, 16, 132) == (32, 4)
+    assert plan(8, 96, 8, 128, 16, 132) == (16, 8)
+    assert plan(4, 64, 2, 128, 16, 132) == (4, 32)
+    assert plan(8, 32, 4, 128, 16, 16) == (32, 4)
+    assert plan(2, 4, 2, 5, 8, 132) == (4, 2)
+    assert plan(1, 8, 8, 3, 64, 132) == (1, 3)   # a page of 64 keys
+    for args in ((8, 32, 4, 128, 16, 132), (3, 24, 2, 7, 8, 4),
+                 (1, 4, 4, 1, 16, 132)):
+        pps, splits = plan(*args)
+        assert (splits - 1) * pps < args[3] <= splits * pps
+
+
+@pytest.mark.parametrize("window", [0, 512])
+def test_decode_splits_cover_live_keys_once(window):
+    """Over the serve path's plan, the splits' key ranges partition the
+    keys a slot sees (at or before its clock, inside the window) for
+    clocks on and beside page and split edges; a split wholly past the
+    clock or behind the window is empty."""
+    ps, n_pages = 16, 128
+    pps, splits = tpaged.decode_split_plan(8, 32, 4, n_pages, ps, 132)
+    for pos in (0, 15, 16, 127, 128, 129, 1000, 2047, 3000):
+        seen = []
+        for s in range(splits):
+            first, last = tpaged.split_key_range(s, pps, ps, n_pages, pos,
+                                                 window)
+            seen.extend(range(first, last + 1))
+            if s * pps * ps > pos or \
+                    (window and (s + 1) * pps * ps <= pos - window + 1):
+                assert first > last, (pos, s)
+        last_key = min(pos, n_pages * ps - 1)
+        lo = max(0, pos - window + 1) if window else 0
+        assert seen == list(range(lo, last_key + 1)), pos
+
+
 def _c_signature(src: str, name: str) -> str:
     """The declaration of C entry point `name` in `src`, whitespace
     collapsed."""
@@ -131,8 +176,9 @@ def test_kernel_source_has_its_c_interface():
     assert _c_signature(src, "paged_attention_decode") == (
         "int paged_attention_decode(const void* q, const void* k, "
         "const void* v, const void* tables, const void* positions, "
-        "void* out, int B, int H, int KV, int D, int ps, int P, "
-        "int window, float scale, int dtype, void* stream)")
+        "void* out, void* workspace, int B, int H, int KV, int D, int ps, "
+        "int P, int window, float scale, int pages_per_split, int dtype, "
+        "void* stream)")
     assert _c_signature(src, "paged_prefill_attention") == (
         "int paged_prefill_attention(const void* q, const void* k, "
         "const void* v, const void* tables, const void* start, "
