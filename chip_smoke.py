@@ -19,8 +19,9 @@ last line):
    into ``build/repro_torch_kernels/``, one nvcc each, started
    together; then the ``-Xptxas -v`` lines (registers, stack, spills)
    of every instantiation of the tensor-core attention core that the
-   two attention sources share (`attention_core.cuh`) and of the split
-   decode kernel and its combine, with their dynamic shared memory;
+   two attention sources share (`attention_core.cuh`), of the split
+   decode kernel and its combine, with their dynamic shared memory, and
+   of the two selective-scan kernels (sequential and chunked);
 3. kernel against plain version on random inputs.  Paged kernels at
    the serve configuration's shapes: yi-6b's attention (H 32, KV 4,
    D 128), page 16, block tables of max_len / page = 128 pages, decode
@@ -111,12 +112,16 @@ last line):
 8. replay: each recorded scan call of that wave (prefill (1, bucket)
    from a zero state, decode (8, 1) from a state) again on random
    inputs against the plain version, then timed as the whole sequence,
-   and its prefill and decode calls apart as extra lines (no single
-   PyTorch call computes a selective scan: library time null).  Bound:
-   the larger of the bytes (dt, x, y (B, S, D), B, C (B, S, N), a,
-   h0 when given, hT, all f32) over 3.35 TB/s and the operations (one
-   exp and six flops per (t, d, n), one per (t, d)) over the 67 TFLOP/s
-   float32 peak;
+   and its prefill and decode calls apart as extra lines, each also as
+   a CUDA graph (``kernel_graph_ms``: decode's device time without the
+   host's launch cost) (no single PyTorch call computes a selective
+   scan: library time null).  Bound: the largest of the bytes (dt, x,
+   y (B, S, D), B, C (B, S, N), a, h0 when given, hT, all f32) over
+   3.35 TB/s, the flops (six per (t, d, n), one per (t, d)) over the
+   67 TFLOP/s float32 peak, and the exps (one per (t, d, n)) over the
+   special-function units' rate (SFU_PER_S); each timing line names
+   the term that bounds it (``bound_by``: ``sfu`` for the exps, which
+   the kernels line reports as ``operations``);
 9. RK3 stencil (falcon-mamba's weights freed first): the kernel
    against its plain version (`ref.stencil_rk3_ref`) on random inputs
    at atol 1e-6 (the reference's stencil tolerance): the reference
@@ -163,6 +168,11 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16, data sheet
 FP32_FLOPS_PER_S = 67e12           # H100 SXM float32 (no tensor cores)
+# exps a second: 16 special-function results per clock per SM (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0) x 132 SMs x 1.98 GHz, the clock behind the 67 TFLOP/s
+# figure (132 x 128 x 2 x 1.98e9)
+SFU_PER_S = 132 * 16 * 1.98e9
 FP32_ATOL = 1e-5                   # paged kernels
 FLASH_FP32_ATOL = 2e-5             # flash kernel
 BF16_ULP = 2.0 ** -7               # a bf16 ulp, relative, at its largest
@@ -207,6 +217,7 @@ AMR_CFG = dict(grain=2048, slots=16, n_steps=16)
 AMR_N_LOC = 256
 AMR_FLOPS_PER_POINT = 60           # per point and step (dryrun.py)
 UNIT_ROUNDOFF = 2.0 ** -24         # float32
+SCAN_ULPS = 15                     # per step, kernel vs plain
 # the whole-prompt engines' prefill buckets: every prompt of the wave
 # (200-1500 tokens) lands on one of them
 BUCKETS = (256, 512, 768, 1024, 1280, 1536)
@@ -227,6 +238,7 @@ OTHER_FLASH_SHAPES = ((1000, 1000, 0), (768, 1536, 768))
 # the build
 TC_KERNEL = "tc_kernel"
 DECODE_KERNEL = "decode_"
+SCAN_KERNEL = "selective_scan"
 # the CUDA-core decode kernel's dynamic shared memory: 4 warps x a ring
 # of 4 bf16 (2 fp32) stages x K and V tiles of 1024 elements
 # (paged_attention.cu)
@@ -500,7 +512,9 @@ def time_sequence(name, kern, plain, lib, bounds, gpu, dtype="bfloat16",
                   graph=False, **line):
     """Time lists of thunks — kernel, plain version, library call (None
     where no PyTorch call computes the function) — and average the
-    bounds ((bytes_ms, ops_ms) per call), each per launch.  Kernel and
+    bounds ((bytes_ms, ops_ms) or (bytes_ms, ops_ms, sfu_ms) per call),
+    each per launch; ``bound_by`` names the term with the largest sum
+    (the kernels line reports ``sfu`` as ``operations``).  Kernel and
     plain run plain, kernel, kernel, plain, the lower of each pair
     kept.  With `graph`, the kernel and library sequences are also
     timed as CUDA graphs (`graph_ms`, an extra line field): calls short
@@ -516,16 +530,17 @@ def time_sequence(name, kern, plain, lib, bounds, gpu, dtype="bfloat16",
         line.update(kernel_graph_ms=graph_ms(kern, iters),
                     library_graph_ms=None if lib is None
                     else graph_ms(lib, iters))
-    tb = sum(b for b, _ in bounds)
-    to = sum(o for _, o in bounds)
-    tmax = sum(max(b, o) for b, o in bounds)
+    terms = [sum(b[i] for b in bounds) for i in range(len(bounds[0]))]
+    by = ("bytes", "operations", "sfu")[terms.index(max(terms))]
     out = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
-           "library_ms": lib_ms, "bound_ms": tmax / len(bounds),
-           "bound_by": "bytes" if tb >= to else "operations"}
+           "library_ms": lib_ms,
+           "bound_ms": sum(max(b) for b in bounds) / len(bounds),
+           "bound_by": "operations" if by == "sfu" else by}
     emit({"timing": name, "gpu": gpu, "dtype": dtype,
           "calls": len(kern), **line, "kernel_ms": [k1, k2],
           "plain_ms": [p1, p2], "library_ms": lib_ms,
-          "bound_ms": out["bound_ms"], "bound_by": out["bound_by"]})
+          "bound_ms": out["bound_ms"], "bound_by": by,
+          "bound_terms_ms": [t / len(bounds) for t in terms]})
     return out
 
 
@@ -1178,13 +1193,22 @@ def scan_serve_bounds(dt, x, bm, cm, a, h0):
     """Per-element bounds on |kernel - plain| for inputs of any scale
     (the model's own, at serve scale), from the rounding.  Per step,
     each version rounds exp(dt a) within 2 float32 ulps (u = 2^-24),
-    the products and the sum within 1 each; so the two h_t differ by
-    at most 12 u m_t plus the decayed difference carried in, where
-    m_t = da_t m_{t-1} + |dbx_t| (m_{-1} = |h0|) bounds every term of
-    h_t: |h_T - h'_T| <= 12 u E_T with E_t = da_t E_{t-1} + m_t.  y_t
-    adds its N-term dot summed in another order: |y_t - y'_t| <=
-    u (12 sum_n E_t |c_t| + 2 N sum_n m_t |c_t|).  Returns the bounds on
-    y and on the final state, and the largest E/m ratio (the steps a
+    the products and the sum within 1 each; so a version walking the
+    steps in order is off by at most 6 u m_t a step plus its decayed
+    error carried in, where m_t = da_t m_{t-1} + |dbx_t| (m_{-1} =
+    |h0|) bounds every term of h_t.  The plain version walks them in
+    order.  The kernel does too, within each group of steps of its
+    chunked order (`selective_scan.cu`), and multiplies a group's
+    incoming state by the product of the same rounded da_t, one
+    rounding a factor as the sequential order has one a step; it
+    composes the groups by a scan of at most three fused multiply-adds
+    per group end, each within u m_t of a partial state bounded by m_t.
+    So the two differ by at most (6 + 6 + 3) u m_t a step (the 3
+    charged at every step, though only a group's last has it):
+    |h_T - h'_T| <= 15 u E_T with E_t = da_t E_{t-1} + m_t.  y_t adds
+    its N-term dot summed in another order: |y_t - y'_t| <= u (15
+    sum_n E_t |c_t| + 2 N sum_n m_t |c_t|).  Returns the bounds on y
+    and on the final state, and the largest E/m ratio (the steps a
     rounding survives)."""
     import torch
     n = a.shape[-1]
@@ -1198,11 +1222,11 @@ def scan_serve_bounds(dt, x, bm, cm, a, h0):
             bm[:, t, None, :].abs()
         e = da * e + m
         c = cm[:, t, None, :].abs()
-        ty[:, t] = UNIT_ROUNDOFF * (12 * (e * c).sum(-1) +
+        ty[:, t] = UNIT_ROUNDOFF * (SCAN_ULPS * (e * c).sum(-1) +
                                     2 * n * (m * c).sum(-1))
     memory = (e / m.clamp_min(1e-30)).max().item()
-    return ty, 12 * UNIT_ROUNDOFF * e, {"bound": "rounding", "ulps": 12,
-                                        "max_E_over_m": memory}
+    return ty, SCAN_ULPS * UNIT_ROUNDOFF * e, {
+        "bound": "rounding", "ulps": SCAN_ULPS, "max_E_over_m": memory}
 
 
 def scan_error(dt, x, bm, cm, a, h0, serve=False, kernel=None):
@@ -1246,20 +1270,23 @@ def check_scan(what, call):
 
 
 def scan_bound(dt, a, h0):
-    """(bytes_ms, ops_ms) of one scan call: dt, x, y (B, S, D), B, C
-    (B, S, N), a, h0 when given and hT, f32, each once; one exp and six
-    flops per (t, d, n) and one flop per (t, d)."""
+    """(bytes_ms, flops_ms, sfu_ms) of one scan call: dt, x, y
+    (B, S, D), B, C (B, S, N), a, h0 when given and hT, f32, each once;
+    six flops per (t, d, n) and one per (t, d) on the float32 units; one
+    exp per (t, d, n) on the special-function units."""
     b, s, d = dt.shape
     n = a.shape[-1]
     floats = 3 * b * s * d + 2 * b * s * n + d * n + \
         (2 if h0 is not None else 1) * b * d * n
-    ops = b * s * d * (7 * n + 1)
-    return floats * 4 / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS_PER_S * 1e3
+    flops = b * s * d * (6 * n + 1)
+    return (floats * 4 / HBM_BYTES_PER_S * 1e3,
+            flops / FP32_FLOPS_PER_S * 1e3,
+            b * s * d * n / SFU_PER_S * 1e3)
 
 
 def time_scan(calls, gpu, **line):
-    """Time a list of scan calls (`time_sequence`, float32): kernel,
-    plain version, no library call."""
+    """Time a list of scan calls (`time_sequence`, float32): kernel
+    (also as a CUDA graph), plain version, no library call."""
     from repro_torch.kernels.scan import ref, scan
 
     def kern(c):
@@ -1270,7 +1297,7 @@ def time_scan(calls, gpu, **line):
     return time_sequence(SCAN, [kern(c) for c in calls],
                          [plain(c) for c in calls], None,
                          [scan_bound(c[0], c[4], c[5]) for c in calls],
-                         gpu, dtype="float32", **line)
+                         gpu, dtype="float32", graph=True, **line)
 
 
 def phase_scan_kernel():
@@ -1416,7 +1443,8 @@ def phase_ssm_logits(params, cfg):
               "call": "prefill" if step == 0 else f"decode step {step}",
               "batch": 1, "steps": s if step == 0 else 1, "layers": L,
               "max_abs_err": err, "err_over_tol": ratios[at],
-              "worst_layer": at, "tol": {"bound": "rounding", "ulps": 12},
+              "worst_layer": at,
+              "tol": {"bound": "rounding", "ulps": SCAN_ULPS},
               "max_E_over_m": max(m for _, _, m in part), "ok": ok})
         if not ok:
             fail(f"{SCAN} disagrees with its plain version on layer {at}'s "
@@ -1845,6 +1873,10 @@ def main() -> None:
                               DECODE_KERNEL):
         emit({"ptxas": libs[0].name, **decode_shape(entry["function"]),
               **entry})
+    # and of the two scan kernels (sequential, chunked)
+    for entry in ptxas_report(libs[2].with_suffix(".log").read_text(),
+                              SCAN_KERNEL):
+        emit({"ptxas": libs[2].name, **entry})
 
     worst = phase_kernels(gpu)
     worst[FLASH] = phase_flash_kernel(gpu)

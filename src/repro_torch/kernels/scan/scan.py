@@ -9,8 +9,11 @@ itself (the decode step writes the new state over the cache's).  On a CUDA
 tensor it launches the kernel in `csrc/selective_scan.cu` on the
 current stream or raises; there is no fallback.  On a CPU tensor it
 computes the plain PyTorch version, `ref.selective_scan_fused_ref`.
-Each launch adds one to ``LAUNCHES["selective_scan"]`` (the TPU
-kernel's name), and nothing else does.
+A prompt runs the chunked kernel (parallel over time within each
+channel), a decode step the sequential one; `use_chunked` is the
+choice.  Each call on the card adds one to
+``LAUNCHES["selective_scan"]`` (the TPU kernel's name), and nothing
+else does.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "selective_scan.cu"
 
 #: kernel launches since the last `reset_launches()`
 LAUNCHES = {"selective_scan": 0}
+#: the largest state size the chunked kernel takes (its shared memory)
+CHUNKED_MAX_STATE = 32
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,10 +46,23 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels.build import load_library
     lib = load_library(SOURCE)
     if not getattr(lib, "_repro_bound", False):
-        lib.selective_scan.argtypes = [_P] * 8 + [_I] * 4 + [_P]
-        lib.selective_scan.restype = _I
+        for fn in (lib.selective_scan_sequential,
+                   lib.selective_scan_chunked):
+            fn.argtypes = [_P] * 8 + [_I] * 4 + [_P]
+            fn.restype = _I
         lib._repro_bound = True
     return lib
+
+
+def use_chunked(s: int, d: int, n: int, *addresses: int) -> bool:
+    """Whether a call of S steps, d_inner d and state n, with dt, x and
+    y at `addresses`, runs the chunked kernel: a prompt (S > 1) whose
+    rows copy as 16-byte units of 4 channels (d a multiple of 4, every
+    address 16-byte aligned) and whose state fits its shared memory
+    (n <= CHUNKED_MAX_STATE).  Anything else, a decode step first, runs
+    the sequential kernel."""
+    return s > 1 and d % 4 == 0 and n <= CHUNKED_MAX_STATE and \
+        all(p % 16 == 0 for p in addresses)
 
 
 def selective_scan_fused(dt: torch.Tensor, x: torch.Tensor,
@@ -85,7 +103,13 @@ def selective_scan_fused(dt: torch.Tensor, x: torch.Tensor,
     y = torch.empty((bsz, s, d), dtype=torch.float32, device=dev)
     h_t = out_state if out_state is not None else \
         torch.empty((bsz, d, n), dtype=torch.float32, device=dev)
-    err = _lib().selective_scan(
+    lib = _lib()
+    # a decode step skips the address reads
+    chunked = s > 1 and use_chunked(s, d, n, dt.data_ptr(), x.data_ptr(),
+                                    y.data_ptr())
+    launch = lib.selective_scan_chunked if chunked \
+        else lib.selective_scan_sequential
+    err = launch(
         dt.data_ptr(), x.data_ptr(), b.data_ptr(), c.data_ptr(),
         a.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
         h_t.data_ptr(), bsz, s, d, n,

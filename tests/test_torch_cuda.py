@@ -18,14 +18,19 @@ decode kernel besides at those head dims, at clocks on and beside page
 and split edges (0, 15, 16, 127, 128, 2047, one slot alone and eight
 together) with window 0 and 512, flat and sharded pools, and captured
 in a CUDA graph that is replayed with new clocks.  Selective
-scan: a prompt whose length is not a multiple of the 64-step tile and
-whose channels do not fill the last block, a decode step, state sizes
-4, 8 and 16, a zero and a given initial state, every states-per-thread
-split; y and the final state at fp32 atol/rtol 1e-5 (the reference's
-scan tolerance).  RK3 stencil: grains inside one 1024-column tile and
-across tiles, 1 and 4 blocks, every pattern of physical sides, p 1, 3
-and 7, at the reference test's dr and at the compiled engine's
-production dr, input scales 0.01 and 0.1; and the compiled AMR step
+scan, both kernels (the chunked one for prompts, the sequential one for
+decode steps and rows it cannot copy 16 bytes at a time): S on and
+beside the chunked kernel's 128-step tile (1, 2, 127, 128, 129, 1000)
+with channels that do not fill the last 32-channel block, B 1 and 8,
+state sizes 4, 8 and 16, a zero and a given initial state, the final
+state written in place over the initial one, a prompt whose x is not
+16-byte aligned, and a prefill and a decode step captured in one CUDA
+graph and replayed on new inputs; y and the final state at fp32
+atol/rtol 1e-5 (the reference's scan tolerance).  RK3 stencil: grains
+inside one 1024-column tile and across tiles, 1 and 4 blocks, every
+pattern of physical sides, p 1, 3 and 7, at the reference test's dr
+and at the compiled engine's production dr, input scales 0.01 and
+0.1; and the compiled AMR step
 through the kernel against its plain path and the global oracle; fp32
 atol 1e-6 (the reference's stencil tolerance).  Each launch
 adds exactly one to its wrapper's count.  `chip_smoke.py` makes the
@@ -464,6 +469,123 @@ def test_cuda_scan_kernel_matches_plain(shape):
         y, h_t = ops.selective_scan(dt, x, bm, cm, a, state)
         torch.testing.assert_close(y, want_y, atol=1e-5, rtol=1e-5)
         assert scan.LAUNCHES == {"selective_scan": 3}
+
+
+def _scan_inputs(rng, b, s, d, n):
+    """dt, x, B, C, a and a state, on the card, drawn as in
+    `test_cuda_scan_kernel_matches_plain`."""
+    def cuda(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).cuda()
+    return (cuda(rng.uniform(0.01, 1.0, size=(b, s, d))),
+            cuda(rng.normal(size=(b, s, d))),
+            cuda(rng.normal(size=(b, s, n)) * 0.3),
+            cuda(rng.normal(size=(b, s, n))),
+            cuda(-rng.uniform(0.5, 2.0, size=(d, n))),
+            cuda(rng.normal(size=(b, d, n))))
+
+
+def _scan_close(got, want):
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+# on and beside the chunked kernel's 128-step tile; 1 is a decode step
+SCAN_EDGE_STEPS = [1, 2, 127, 128, 129, 1000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 8, 16])
+@pytest.mark.parametrize("s", SCAN_EDGE_STEPS)
+def test_cuda_scan_tile_edges(s, n):
+    """B 1 and 8, from a zero state into a new one and from a given
+    state written over in place; d_inner 72 leaves the last 32-channel
+    block of the chunked kernel part-empty."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel is CUDA C++ and "
+                    "has no CPU mode")
+    from repro_torch.kernels.scan import ref, scan
+    rng = np.random.default_rng(1000 * s + n)
+    d = 72
+    for b in (1, 8):
+        dt, x, bm, cm, a, h0 = _scan_inputs(rng, b, s, d, n)
+        assert scan.use_chunked(s, d, n, dt.data_ptr(), x.data_ptr()) == \
+            (s > 1)
+        for state in (None, h0):
+            want_y, want_h = ref.selective_scan_fused_ref(dt, x, bm, cm, a,
+                                                          state)
+            out = None if state is None else state.clone()
+            scan.reset_launches()
+            y, h_t = scan.selective_scan_fused(dt, x, bm, cm, a, out,
+                                               out_state=out)
+            torch.cuda.synchronize()
+            assert scan.LAUNCHES == {"selective_scan": 1}
+            assert out is None or h_t is out
+            _scan_close(y, want_y)
+            _scan_close(h_t, want_h)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_unaligned_prompt():
+    """A prompt whose x starts 4 bytes past a 16-byte boundary runs the
+    sequential kernel, and agrees."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel is CUDA C++ and "
+                    "has no CPU mode")
+    from repro_torch.kernels.scan import ref, scan
+    rng = np.random.default_rng(5)
+    b, s, d, n = 2, 300, 64, 16
+    dt, x, bm, cm, a, h0 = _scan_inputs(rng, b, s, d, n)
+    shifted = torch.empty(x.numel() + 1, device="cuda")[1:].view(b, s, d)
+    shifted.copy_(x)
+    assert not scan.use_chunked(s, d, n, dt.data_ptr(), shifted.data_ptr())
+    y, h_t = scan.selective_scan_fused(dt, shifted, bm, cm, a, h0)
+    want_y, want_h = ref.selective_scan_fused_ref(dt, x, bm, cm, a, h0)
+    _scan_close(y, want_y)
+    _scan_close(h_t, want_h)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_graph_replay():
+    """A prefill (chunked kernel, zero state) and a decode step
+    (sequential kernel, state written in place) captured in one CUDA
+    graph, replayed twice on new inputs copied into the captured
+    tensors: a call plans from shapes alone, so a graph holds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel is CUDA C++ and "
+                    "has no CPU mode")
+    from repro_torch.kernels.scan import ref, scan
+    rng = np.random.default_rng(6)
+    d, n = 72, 16
+    pre = _scan_inputs(rng, 1, 300, d, n)[:5]
+    dec = _scan_inputs(rng, 8, 1, d, n)
+    state = dec[5]
+
+    def run():
+        y_p, h_p = scan.selective_scan_fused(*pre)
+        y_d, _ = scan.selective_scan_fused(*dec[:5], state,
+                                           out_state=state)
+        return y_p, h_p, y_d
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_p, h_p, y_d = run()
+    for _ in range(2):
+        new_pre = _scan_inputs(rng, 1, 300, d, n)[:5]
+        new_dec = _scan_inputs(rng, 8, 1, d, n)
+        for dst, src in zip(pre + dec, new_pre + new_dec):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        want_p = ref.selective_scan_fused_ref(*new_pre)
+        want_d = ref.selective_scan_fused_ref(*new_dec)
+        _scan_close(y_p, want_p[0])
+        _scan_close(h_p, want_p[1])
+        _scan_close(y_d, want_d[0])
+        _scan_close(state, want_d[1])
 
 
 STENCIL_GRAINS = [8, 1000, 2100]   # inside one 1024-column tile and across

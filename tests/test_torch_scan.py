@@ -7,8 +7,9 @@ fed the reference's own `_mamba1_inputs`, and with a state against the
 final state of the reference's `mamba1_scan_ref`.  atol/rtol 1e-5, the
 reference's scan tolerance (`test_kernels.py:129-152`).  The CUDA
 kernel itself runs only on the card (`test_torch_cuda.py`,
-`chip_smoke.py`); here its wrapper's CPU path and its refusal of CPU
-tensors are checked."""
+`chip_smoke.py`); here its wrapper's CPU path, its refusal of CPU
+tensors and its choice between the chunked and the sequential kernel
+are checked."""
 
 import numpy as np
 import pytest
@@ -155,3 +156,15 @@ def test_use_kernel_true_on_cpu_raises(layer):
     with pytest.raises(ValueError, match="CUDA"):
         tssm.mamba1_scan_ref(tl, _t(x), tcfg, use_kernel=True)
     assert scan.LAUNCHES == {"selective_scan": 0}
+
+
+def test_scan_kernel_choice():
+    """`scan.use_chunked`: a prompt runs the chunked kernel; a decode
+    step, and rows it cannot copy 16 bytes at a time or a state too
+    large for its shared memory, the sequential one."""
+    assert scan.use_chunked(256, 8192, 16, 0, 1 << 20, 2 << 20)
+    assert scan.use_chunked(2, 4, scan.CHUNKED_MAX_STATE, 16, 32)
+    assert not scan.use_chunked(1, 8192, 16, 0, 1 << 20)
+    assert not scan.use_chunked(256, 8190, 16, 0, 1 << 20)
+    assert not scan.use_chunked(256, 8192, 64, 0, 1 << 20)
+    assert not scan.use_chunked(256, 8192, 16, 0, (1 << 20) + 4)
